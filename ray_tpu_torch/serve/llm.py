@@ -1,0 +1,530 @@
+"""Continuous-batching LLM engine on PyTorch and CUDA.
+
+Counterpart of ``ray_tpu/serve/llm.py``, for one model on one card:
+
+- The KV cache is slot-based: ``max_batch_size`` sequence slots, each with
+  a ``max_seq_len`` KV region (``models.llama.init_kv_cache``). Admission
+  = prefill into a free slot; retirement frees the slot. A decode step
+  runs over all slots whatever their occupancy.
+- Prefill lengths are bucketed to powers of two; a bucket's padding
+  tokens write KV past the prompt, which decode overwrites before any
+  query attends to it (the absolute-position mask hides the rest).
+- Sampling (greedy / temperature / top-k) runs on the device with the
+  engine's ``torch.Generator``; one admission wave samples its first
+  tokens in one batched call and one host sync.
+- Decode is multi-step (``decode_steps`` tokens per dispatch) and
+  pipelined: block N+1 is launched before block N's tokens are read on
+  the host, and those tokens come back through an asynchronous copy, so
+  the host's bookkeeping overlaps the card's compute.
+
+The engine is thread-safe: callers enqueue requests and block on their
+completion (or stream tokens); a background loop interleaves admission
+and decode.
+
+Not yet ported: the prefix/KV cache and its shm tier, multi-model
+``swap_params``, critical-path stages and ``perf_stats`` counters, and
+the serve runtime (proxy, router, controller).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch import _build
+from ray_tpu_torch.models.llama import (
+    LlamaConfig,
+    forward_with_cache,
+    init_kv_cache,
+    resolve_device,
+)
+
+
+class PromptTooLongError(ValueError):
+    """Prompt exceeds the engine's slot KV region (``max_seq_len - 1``
+    tokens: one position must remain for generation). Raised at
+    ``generate()``."""
+
+    def __init__(self, n_tokens: int, cap: int):
+        super().__init__(
+            f"prompt of {n_tokens} tokens exceeds the engine's "
+            f"{cap}-token cap (max_seq_len {cap + 1}); truncate or "
+            f"shard client-side")
+        self.n_tokens = n_tokens
+        self.cap = cap
+
+
+class UnknownModelError(ValueError):
+    """The request names a model this deployment does not hold."""
+
+    def __init__(self, model: str, known):
+        super().__init__(
+            f"unknown model {model!r}; this replica serves {known}")
+        self.model = model
+        self.known = list(known)
+
+
+# Per-slot top_k values are clamped to this (one sorted prefix of this
+# width serves every slot).
+_TOP_K_MAX = 64
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    max_tokens: int = 64
+    temperature: float = 0.0  # 0 → greedy
+    top_k: int = 0            # 0 = full softmax; clamped to _TOP_K_MAX
+    stop_token_ids: tuple = ()
+
+
+@dataclasses.dataclass
+class _Request:
+    request_id: int
+    prompt: List[int]
+    params: SamplingParams
+    out_queue: "queue.Queue"
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    priority: int = 1     # 0 interactive > 1 normal > 2 batch
+
+
+def _params_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class LLMEngine:
+    def __init__(self, cfg: LlamaConfig, params, *,
+                 max_batch_size: int = 8, max_seq_len: Optional[int] = None,
+                 decode_steps: int = 1, seed: int = 0,
+                 model: str = "default", device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = _params_to(params, self.device)
+        self.model = model
+        self.n_slots = max_batch_size
+        # Tokens generated per decode dispatch. >1 trades admission
+        # granularity (a new request waits for the current block) for
+        # K-fold fewer host round trips.
+        self.decode_steps = max(1, int(decode_steps))
+        self.max_seq = max_seq_len or cfg.max_seq_len
+        self.cache = init_kv_cache(cfg, self.n_slots, self.max_seq,
+                                   device=self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+
+        # Per-slot host state.
+        self._free_slots = list(range(self.n_slots))
+        self._slot_req: Dict[int, _Request] = {}
+        self._lengths = np.zeros(self.n_slots, np.int32)  # tokens in cache
+        self._last_token = np.zeros(self.n_slots, np.int32)
+        self._active = np.zeros(self.n_slots, bool)
+        self._temps_arr = np.zeros(self.n_slots, np.float32)
+        self._topks_arr = np.zeros(self.n_slots, np.int32)
+
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        self._req_counter = itertools.count()
+        self._lock = threading.Lock()
+        self._running = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # Pipelined decode: the in-flight block's (host tokens, copy-done
+        # event), plus device-side last-token/length carries valid while
+        # no admission has touched the host copies.
+        self._pending = None
+        self._dev_last: Optional[torch.Tensor] = None
+        self._dev_lengths: Optional[torch.Tensor] = None
+        # Model forwards run, for callers that check kernel launch counts.
+        self._n_prefills = 0
+        self._n_decode_forwards = 0
+
+    def warmup(self, max_prompt_len: Optional[int] = None) -> float:
+        """Build the kernels and run every serving shape once before the
+        first request: prefill at each power-of-two bucket up to
+        ``max_prompt_len`` (default ``max_seq_len``), the admission
+        sampler and one decode block. Must run before :meth:`start`.
+        Returns the wall seconds spent. Warmup writes KV into slot 0;
+        every slot's length stays 0, so all still read as empty."""
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError("warmup() must run before the engine loop "
+                               "starts")
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            _build.build_all()
+        limit = min(max_prompt_len or self.max_seq, self.max_seq)
+        buckets, b = [], 1
+        while b < limit:
+            buckets.append(b)
+            b *= 2
+        buckets.append(min(b, self.max_seq))
+        last = None
+        for bucket in sorted(set(buckets)):
+            tokens = torch.zeros((1, bucket), dtype=torch.long,
+                                 device=self.device)
+            last = self._prefill(tokens, 0, 1)
+        self._sample_admitted(last[None], np.zeros(1, np.float32))
+        zeros = torch.zeros(self.n_slots, dtype=torch.int32,
+                            device=self.device)
+        toks, _, _ = self._decode_impl(zeros, zeros, self._temps_arr,
+                                       self._topks_arr)
+        toks.cpu()
+        return time.perf_counter() - t0
+
+    # -- device work -----------------------------------------------------
+
+    def _prefill(self, tokens: torch.Tensor, slot: int,
+                 length: int) -> torch.Tensor:
+        """tokens: ``[1, bucket]`` padded prompt; writes the slot's KV from
+        position 0 and returns the logits at the last real position
+        ``[vocab]``."""
+        slot_cache = {"k": self.cache["k"][:, slot:slot + 1],
+                      "v": self.cache["v"][:, slot:slot + 1]}
+        start = torch.zeros(1, dtype=torch.int32, device=self.device)
+        logits, _ = forward_with_cache(self.params, tokens, self.cfg,
+                                       slot_cache, start)
+        self._n_prefills += 1
+        return logits[0, length - 1]
+
+    def _sample_admitted(self, logits: torch.Tensor,
+                         temps: np.ndarray) -> torch.Tensor:
+        """logits ``[n, vocab]``, temps ``[n]`` (host) → first token per
+        row, greedy at temperature 0 (no top-k, as in the JAX engine)."""
+        logits = logits.float()
+        firsts = logits.argmax(-1)
+        if (temps > 0).any():
+            t = torch.from_numpy(temps).to(self.device)
+            probs = torch.softmax(logits / t.clamp_min(1e-6)[:, None], -1)
+            sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+            firsts = torch.where(t > 0, sampled, firsts)
+        return firsts
+
+    def _decode_impl(self, last_tokens: torch.Tensor, lengths: torch.Tensor,
+                     temps: np.ndarray, topks: np.ndarray):
+        """``decode_steps`` tokens for every slot. last_tokens/lengths are
+        int32 ``[slots]`` on the device; temps/topks are host arrays (all
+        greedy skips the sampler). Returns (tokens ``[slots, K]``, last
+        tokens, lengths), all on the device."""
+        sampling = bool((temps > 0).any())
+        if sampling:
+            t = torch.from_numpy(temps.copy()).to(self.device)
+            k = torch.from_numpy(topks.copy()).to(self.device)
+            width = min(_TOP_K_MAX, self.cfg.vocab_size)
+        tokens, out = last_tokens, []
+        for _ in range(self.decode_steps):
+            # Clamp for retired slots that keep computing until their slot
+            # is re-admitted (pipelined decode reads lag a block): their
+            # writes stay inside the slot instead of running off its end.
+            lengths = lengths.clamp(max=self.max_seq - 2)
+            logits, _ = forward_with_cache(self.params, tokens[:, None],
+                                           self.cfg, self.cache, lengths)
+            self._n_decode_forwards += 1
+            logits = logits[:, 0, :].float()  # [slots, vocab]
+            nxt = logits.argmax(-1)
+            if sampling:
+                # Per-slot top-k: threshold at each slot's k-th largest.
+                kth = logits.topk(width, dim=-1).values
+                idx = (k - 1).clamp(0, width - 1).long()
+                thresh = kth.gather(1, idx[:, None])
+                truncated = logits.masked_fill(logits < thresh,
+                                               float("-inf"))
+                sample_logits = torch.where((k > 0)[:, None], truncated,
+                                            logits)
+                probs = torch.softmax(
+                    sample_logits / t.clamp_min(1e-6)[:, None], -1)
+                sampled = torch.multinomial(probs, 1,
+                                            generator=self._gen)[:, 0]
+                nxt = torch.where(t > 0, sampled, nxt)
+            tokens = nxt.to(torch.int32)
+            lengths = lengths + 1
+            out.append(tokens)
+        return torch.stack(out, dim=1), tokens, lengths
+
+    def _start_fetch(self, toks: torch.Tensor):
+        """Start copying a decode block's tokens to the host."""
+        if toks.device.type != "cuda":
+            return toks, None
+        host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+        host.copy_(toks, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _finish_fetch(pending) -> np.ndarray:
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+    # -- public API ------------------------------------------------------
+
+    def start(self):
+        # Under the lock: concurrent generate() callers must never spawn
+        # two engine loops.
+        with self._lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._running.set()
+                self._thread = threading.Thread(
+                    target=self._loop, daemon=True, name="llm-engine")
+                self._thread.start()
+
+    def stop(self):
+        self._running.clear()
+        t = self._thread
+        if t is not None and t.is_alive() \
+                and t is not threading.current_thread():
+            t.join(timeout=10)
+
+    def generate(self, prompt_ids: List[int],
+                 params: Optional[SamplingParams] = None,
+                 stream: bool = False, *,
+                 priority: int = 1):
+        """Blocking generate (or an iterator of tokens with stream=True)."""
+        prompt = [int(t) for t in prompt_ids]
+        cap = self.max_seq - 1
+        if len(prompt) > cap:
+            raise PromptTooLongError(len(prompt), cap)
+        if not prompt:
+            raise ValueError("empty prompt")
+        bad = [t for t in prompt if not 0 <= t < self.cfg.vocab_size]
+        if bad:
+            raise ValueError(f"token ids {bad[:5]} outside the vocabulary "
+                             f"[0, {self.cfg.vocab_size})")
+        req = _Request(
+            request_id=next(self._req_counter), prompt=prompt,
+            params=params or SamplingParams(), out_queue=queue.Queue(),
+            priority=max(0, min(2, int(priority))))
+        self._queue.put(req)
+        self.start()
+
+        def token_iter():
+            while True:
+                item = req.out_queue.get()
+                if item is None:
+                    return
+                yield item
+
+        if stream:
+            return token_iter()
+        return list(token_iter())
+
+    def metrics(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "active_slots": int(self._active.sum()),
+                "free_slots": len(self._free_slots),
+                "queued": self._queue.qsize(),
+                "model": self.model,
+                "prefills": self._n_prefills,
+                "decode_forwards": self._n_decode_forwards,
+            }
+
+    # -- engine loop -----------------------------------------------------
+
+    def _loop(self):
+        while self._running.is_set():
+            admitted = self._admit()
+            if not self._active.any():
+                # Drop any in-flight block for fully-retired slots.
+                self._flush_pending()
+                if not admitted:
+                    try:
+                        req = self._queue.get(timeout=0.05)
+                        self._queue.put(req)
+                    except queue.Empty:
+                        continue
+                continue
+            self._decode_once()
+
+    def _serve_bucket(self, t_real: int) -> int:
+        """Smallest power of two that holds ``t_real`` tokens, capped at
+        the slot length."""
+        b = 1
+        while b < t_real:
+            b *= 2
+        return min(b, self.max_seq)
+
+    def _admit(self) -> bool:
+        if self._queue.empty() or not self._free_slots:
+            return False
+        # Admission invalidates the device carries and needs free slots:
+        # drain the in-flight decode block first.
+        self._flush_pending()
+        drained: List[_Request] = []
+        while True:
+            try:
+                drained.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        # Interactive (0) outranks normal (1) outranks batch (2); FIFO
+        # within a class via the monotonic request id.
+        drained.sort(key=lambda r: (r.priority, r.request_id))
+        staged = []  # (req, slot, t_real, last_logits)
+        leftover: List[_Request] = []
+        for req in drained:
+            if not self._free_slots:
+                leftover.append(req)
+                continue
+            slot = self._free_slots.pop()
+            t_real = len(req.prompt)
+            bucket = self._serve_bucket(t_real)
+            tokens = torch.zeros((1, bucket), dtype=torch.long)
+            tokens[0, :t_real] = torch.tensor(req.prompt)
+            last = self._prefill(tokens.to(self.device), slot, t_real)
+            staged.append((req, slot, t_real, last))
+        for req in leftover:
+            self._queue.put(req)
+        if not staged:
+            return False
+        # ONE batched sampling call and ONE host sync for the whole wave.
+        temps = np.array([s[0].params.temperature for s in staged],
+                         np.float32)
+        firsts = self._sample_admitted(
+            torch.stack([s[3] for s in staged]), temps).cpu().numpy()
+        for (req, slot, t_real, _), first in zip(staged, firsts):
+            first = int(first)
+            req.tokens.append(first)
+            req.out_queue.put(first)
+            with self._lock:
+                self._slot_req[slot] = req
+                self._lengths[slot] = t_real
+                self._last_token[slot] = first
+                self._active[slot] = True
+                self._temps_arr[slot] = req.params.temperature
+                self._topks_arr[slot] = max(0, min(req.params.top_k,
+                                                   _TOP_K_MAX))
+            if self._finished(req, first):
+                self._retire(slot)
+        # Host state changed: rebuild device carries on the next decode.
+        self._dev_last = self._dev_lengths = None
+        return True
+
+    def _decode_once(self):
+        # The fed token occupies absolute position `lengths` (prompt is
+        # 0..len-1, the first generated token sits at len, etc.). Launch
+        # block N+1 from the device-side carries, THEN wait for block N's
+        # tokens: the host's wait and bookkeeping overlap N+1's compute.
+        last = self._dev_last if self._dev_last is not None \
+            else torch.tensor(self._last_token, device=self.device)
+        lengths = self._dev_lengths if self._dev_lengths is not None \
+            else torch.tensor(self._lengths, device=self.device)
+        toks, self._dev_last, self._dev_lengths = self._decode_impl(
+            last, lengths, self._temps_arr, self._topks_arr)
+        prev, self._pending = self._pending, self._start_fetch(toks)
+        if prev is not None:
+            self._consume_block(self._finish_fetch(prev))
+
+    def _flush_pending(self):
+        prev, self._pending = self._pending, None
+        if prev is not None:
+            self._consume_block(self._finish_fetch(prev))
+
+    def _consume_block(self, next_host: np.ndarray):
+        with self._lock:
+            for slot in np.nonzero(self._active)[0]:
+                req = self._slot_req[slot]
+                # Walk this slot's K-token block; once the request
+                # finishes mid-block the remaining tokens are padding
+                # compute and are discarded.
+                for k in range(next_host.shape[1]):
+                    tok = int(next_host[slot, k])
+                    req.tokens.append(tok)
+                    req.out_queue.put(tok)
+                    self._lengths[slot] += 1
+                    self._last_token[slot] = tok
+                    if self._finished(req, tok) or \
+                            self._lengths[slot] >= self.max_seq - 1:
+                        self._retire(slot)
+                        break
+
+    def _finished(self, req: _Request, token: int) -> bool:
+        if token in req.params.stop_token_ids:
+            return True
+        return len(req.tokens) >= req.params.max_tokens
+
+    def _retire(self, slot: int):
+        req = self._slot_req.pop(slot, None)
+        if req is not None:
+            req.out_queue.put(None)
+        self._active[slot] = False
+        self._lengths[slot] = 0
+        self._free_slots.append(slot)
+
+
+# -- Serve integration ------------------------------------------------------
+
+
+# Priority classes understood on the wire (ints 0-2 also accepted).
+_PRIORITY_CLASSES = {
+    "high": 0, "interactive": 0, "normal": 1, "low": 2, "batch": 2,
+}
+
+
+def _parse_priority(raw) -> int:
+    if isinstance(raw, str):
+        return _PRIORITY_CLASSES.get(raw.lower().strip(), 1)
+    try:
+        return max(0, min(2, int(raw)))
+    except (TypeError, ValueError):
+        return 1
+
+
+class LLMDeployment:
+    """Deployment-ready wrapper around one :class:`LLMEngine` holding one
+    model: build it, warm it up, start its loop, then call it with a
+    request dict (the contract of ``ray_tpu.serve.llm.LLMDeployment``):
+    ``{"prompt_ids": [...], "max_tokens", "temperature",
+    "stop_token_ids", "model", "priority", "stream"}`` (the JAX
+    deployment's ``"job"`` key feeds accounting not ported yet and is
+    ignored)."""
+
+    def __init__(self, cfg: LlamaConfig, params_fn: Callable[[], Any] = None,
+                 max_batch_size: int = 8,
+                 max_seq_len: Optional[int] = None,
+                 decode_steps: int = 1,
+                 warmup: bool = True,
+                 warmup_max_prompt_len: Optional[int] = None,
+                 device=None):
+        if params_fn is None:
+            raise ValueError("LLMDeployment needs params_fn")
+        params = params_fn() if callable(params_fn) else params_fn
+        self.engine = LLMEngine(cfg, params, max_batch_size=max_batch_size,
+                                max_seq_len=max_seq_len,
+                                decode_steps=decode_steps, device=device)
+        self.warmup_s = self.engine.warmup(warmup_max_prompt_len) \
+            if warmup else 0.0
+        self.engine.start()
+
+    def __call__(self, request: Dict[str, Any]):
+        t0 = time.perf_counter()
+        params = SamplingParams(
+            max_tokens=int(request.get("max_tokens", 64)),
+            temperature=float(request.get("temperature", 0.0)),
+            stop_token_ids=tuple(request.get("stop_token_ids", ())))
+        model = str(request.get("model") or self.engine.model)
+        if model != self.engine.model:
+            raise UnknownModelError(model, [self.engine.model])
+        priority = _parse_priority(request.get("priority", 1))
+        it = self.engine.generate(request["prompt_ids"], params, stream=True,
+                                  priority=priority)
+        if request.get("stream"):
+            def token_stream():
+                for i, token in enumerate(it):
+                    yield {"token": int(token), "index": i}
+            return token_stream()
+        tokens = []
+        ttft_s = None
+        for token in it:
+            if ttft_s is None:
+                ttft_s = time.perf_counter() - t0
+            tokens.append(int(token))
+        return {"tokens": tokens,
+                "model": model,
+                "ttft_s": ttft_s,
+                "latency_s": time.perf_counter() - t0}
