@@ -14,7 +14,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              PyTorch library call (yardstick only) beside the least time
              the card could take (bound). The flash backward runs every
              instantiation its wrapper accepts (bf16 and f32, head_dim
-             64 and 128, causal and not, ragged Sq and Sk).
+             64 and 128, causal and not, ragged Sq and Sk) and the bf16
+             kernels' tile edges (MHA, a group of 8, Sq = Sk = 129).
 4. serve   — LLMDeployment on Llama-3.2-1B (full width and depth, random
              weights from --seed), answering concurrent requests; checks
              every answer and that the main path launched each kernel
@@ -272,8 +273,9 @@ def flash_bwd_checks(torch, seed, time_ms):
         # per visible (row, key) pair, dk/dv four.
         pairs = b * h * visible_keys(sq, sk, causal)
         read = (2 * q.numel() + 2 * k.numel()) * elt + 2 * lse.numel() * 4
-        bounds = {"dq": bound(read + q.numel() * elt, 6 * d * pairs, dname),
-                  "dkv": bound(read + 2 * k.numel() * elt, 8 * d * pairs,
+        ops = {"dq": 6 * d * pairs, "dkv": 8 * d * pairs}
+        bounds = {"dq": bound(read + q.numel() * elt, ops["dq"], dname),
+                  "dkv": bound(read + 2 * k.numel() * elt, ops["dkv"],
                                dname)}
         shape = {"b": b, "sq": sq, "sk": sk, "h": h, "h_kv": h_kv, "d": d,
                  "causal": causal, "dtype": dname}
@@ -286,7 +288,9 @@ def flash_bwd_checks(torch, seed, time_ms):
                    "max_abs_err": max(err[n][0] for n in names),
                    "tol": f"{tol_rel} x max(2**-4, row's max |grad|)",
                    "max_err_over_tol": max(err[n][1] for n in names),
-                   "kernel_ms": ms, "plain_ms": plain_ms,
+                   "kernel_ms": ms,
+                   "tflop_per_s": ops[kind] / ms / 1e9,
+                   "plain_ms": plain_ms,
                    "plain": "flash_attention_bwd_reference, dq dk dv "
                             "together",
                    "library_ms": library_ms,
@@ -308,7 +312,18 @@ def flash_bwd_checks(torch, seed, time_ms):
              ("head_dim 128", 1, 512, 512, True, bf16, 128),
              ("float32", 1, 512, 512, True, f32),
              ("float32 head_dim 128 non-causal Sq 257 Sk 130", 1, 257, 130,
-              False, f32, 128)]
+              False, f32, 128),
+             # The tensor-core kernels' edges: one head per group, a group
+             # of 8, a row and a key one past a 64-row tile (and, at
+             # head_dim 128, past the 32-row q tile of dk/dv).
+             ("MHA h 8 h_kv 8", 2, 512, 512, True, bf16, 64, 8, 8),
+             ("group of 8: h 32 h_kv 4", 1, 1024, 1024, True, bf16, 64, 32,
+              4),
+             ("Sq=Sk=129", 1, 129, 129, True, bf16),
+             ("head_dim 128 MHA Sq=Sk=129", 1, 129, 129, True, bf16, 128, 8,
+              8),
+             ("head_dim 128 non-causal Sq 200 Sk 129", 1, 200, 129, False,
+              bf16, 128)]
     return [row for c in cases for row in case(*c)]
 
 

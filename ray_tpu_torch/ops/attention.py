@@ -311,6 +311,12 @@ def _check_bwd_args(q, k, v, o, lse, do) -> None:
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError(f"flash_attention_bwd: o and do must have q's dtype "
                         f"{q.dtype}, got {o.dtype}, {do.dtype}")
+    # The bf16 kernels also copy q and do rows as 16-byte pieces.
+    if q.dtype == torch.bfloat16:
+        for label, t in (("q", q), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_bwd: the bf16 kernels "
+                                 f"need a 16-byte aligned {label}")
 
 
 def flash_attention_bwd(

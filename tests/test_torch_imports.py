@@ -118,6 +118,27 @@ def test_kernel_sources_are_listed_and_keyed_by_content():
                for p in paths.values())
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_bwd_args_need_aligned_bf16_q_and_do(dtype):
+    """The bf16 backward kernels copy q and do rows as 16-byte pieces, so
+    a q or do that starts off a 16-byte boundary is refused by name
+    before any launch; the f32 kernels read it element by element."""
+    from ray_tpu_torch.ops.attention import _check_bwd_args
+
+    shape = (1, 4, 2, 64)
+    k = torch.zeros(1, 4, 1, 64, dtype=dtype)
+    lse = torch.zeros(1, 2, 4)
+    aligned = torch.zeros(shape, dtype=dtype)
+    shifted = torch.zeros(aligned.numel() + 1, dtype=dtype)[1:].view(shape)
+    assert shifted.data_ptr() % 16
+    for label, q, do in (("q", shifted, aligned), ("do", aligned, shifted)):
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match=f"aligned {label}$"):
+                _check_bwd_args(q, k, k, aligned, lse, do)
+        else:
+            _check_bwd_args(q, k, k, aligned, lse, do)
+
+
 def test_unknown_device_raises():
     from ray_tpu_torch.ops.attention import (flash_attention_bwd,
                                              flash_attention_fwd)

@@ -201,11 +201,15 @@ def test_rope_matches_jax():
 # -- flash attention backward -----------------------------------------------
 
 # (b, sq, sk, h, h_kv, d): tests/ops/test_ops.py:77-106's grid (GQA, ragged
-# q and k against the 64-row blocks), plus Sq != Sk.
+# q and k against the 64-row blocks), plus Sq != Sk, and the geometries the
+# card's tensor-core kernels add at their tile edges: MHA with 8 heads, and
+# 129 rows and keys (one past two 64-row tiles).
 _BWD_SHAPES = [
     (1, 64, 64, 4, 2, 16),
     (2, 96, 96, 4, 4, 16),
     (1, 100, 100, 2, 2, 16),
+    (1, 64, 64, 8, 8, 16),
+    (1, 129, 129, 4, 2, 16),
 ]
 _BWD_CASES = ([(s, causal) for s in _BWD_SHAPES for causal in (True, False)]
               + [((2, 48, 100, 4, 2, 16), False)])
