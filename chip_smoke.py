@@ -8,26 +8,32 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 1. device  — the card's name, count and power limit (nvidia-smi).
 2. build   — compiles every kernel under ray_tpu_torch/csrc/ (one nvcc
              per source, all at once) and prints the build seconds.
-3. kernels — holds each kernel against its plain PyTorch version on the
+3. resources — registers and spills (nvcc -Xptxas -v) and HMMA count
+             (cuobjdump -sass) of every kernel; each tensor-core kernel
+             must show HMMA and no spill.
+4. kernels — holds each kernel against its plain PyTorch version on the
              card at the serving and training paths' shapes, with the
-             stated tolerance, and times kernel, plain version and one
-             PyTorch library call (yardstick only) beside the least time
-             the card could take (bound). The flash backward runs every
-             instantiation its wrapper accepts (bf16 and f32, head_dim
-             64 and 128, causal and not, ragged Sq and Sk) and the bf16
-             kernels' tile edges (MHA, a group of 8, Sq = Sk = 129).
-4. serve   — LLMDeployment on Llama-3.2-1B (full width and depth, random
+             stated tolerance, and times kernel and one PyTorch library
+             call (yardstick only; the median of 5 ten-launch means,
+             with min and max) and the plain version beside the least
+             time the card could take (bound). The flash kernels run
+             every instantiation their wrappers accept (bf16 and f32,
+             head_dim 64 and 128, causal and not, ragged Sq and Sk, the
+             8-row decode tile) and the bf16 tensor-core kernels' tile
+             edges (MHA, a group of 8, Sq or Sk one past a tile, a short
+             block at the end of a full cache).
+5. serve   — LLMDeployment on Llama-3.2-1B (full width and depth, random
              weights from --seed), answering concurrent requests; checks
              every answer and that the main path launched each kernel
              the expected number of times; prints tokens/s, TTFT p50 and
              the decode step time.
-5. logits  — one prompt's prefill and 4 decode steps of the 1B model cut
+6. logits  — one prompt's prefill and 4 decode steps of the 1B model cut
              to 2 layers, on the card (bf16, kernels) against the CPU
              (f32, plain versions).
-6. grads   — loss_fn and the gradient of every parameter of the 1B model
+7. grads   — loss_fn and the gradient of every parameter of the 1B model
              cut to 2 layers, on the card (bf16, kernels) against the CPU
              (f32, plain versions), each leaf held to its own limit.
-7. train   — three AdamW steps of Llama-3.2-1B at full width and depth
+8. train   — three AdamW steps of Llama-3.2-1B at full width and depth
              (batch 4 x 2048 tokens, one fixed random batch) through
              make_train_step; checks finite, falling loss and the launches
              of every kernel in each step; prints step time, tokens/s,
@@ -42,7 +48,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
+import re
 import math
 import os
 import statistics
@@ -50,6 +58,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -77,17 +86,27 @@ def bound(nbytes: float, ops: float, dtype_name: str):
                                  else "operations")
 
 
+# Device-side wait between the L2 flush and the start event: ~0.5 ms at
+# the H100's clocks, longer than any wrapper's host work, so that the
+# launches of a timed call are enqueued before the card reaches its start
+# event and the reading is the card's time, not the host's.
+SLEEP_CYCLES = 1_000_000
+
+
 def make_timer(torch):
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
 
     def time_ms(fn, iters: int = 10) -> float:
         """Mean device time of ``fn`` over ``iters`` runs, each with a
-        cold L2 (a 128 MiB write between runs), from CUDA events."""
+        cold L2, from CUDA events. The L2 is made cold by a 128 MiB
+        write; then the card sleeps ``SLEEP_CYCLES`` while the host
+        enqueues ``fn``."""
         fn()
         torch.cuda.synchronize()
         pairs = []
         for _ in range(iters):
             flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -97,10 +116,88 @@ def make_timer(torch):
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
+    def time_stats(fn, repeats: int = 5) -> dict:
+        """``time_ms`` repeated ``repeats`` times: the median with the
+        min, the max and every reading."""
+        runs = [time_ms(fn) for _ in range(repeats)]
+        return {"median": statistics.median(runs), "min": min(runs),
+                "max": max(runs), "runs": runs}
+
+    time_ms.stats = time_stats
     return time_ms
 
 
-# -- phase 3: kernels against their plain versions ---------------------------
+# -- phase 3: what each kernel compiled to --------------------------------------
+
+
+def kernel_resources(build):
+    """Registers and spills of every kernel (``nvcc -Xptxas -v``, the
+    build's flags, into a cubin beside the libraries) and its ``HMMA``
+    count (``cuobjdump -sass`` of the library the build loaded), one
+    ``nvcc`` per source, all at once. Every tensor-core kernel must show
+    ``HMMA`` and no spill."""
+    nvcc = Path(build._nvcc())
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                      "-fPIC")]
+    out_dir = build.BUILD_DIR.parent / "resources"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [str(nvcc), *flags, "-cubin", "-Xptxas", "-v",
+         "-o", str(out_dir / f"{name}.cubin"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, src in build.sources().items()}
+    kernels = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"nvcc -Xptxas -v {name}: {log}")
+        entry = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = m.group(1)
+                kernels[entry] = {"source": name}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and entry:
+                kernels[entry]["spill_stores"] = int(m.group(1))
+                kernels[entry]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                kernels[entry]["registers"] = int(m.group(1))
+        sass = subprocess.run(
+            [str(nvcc.with_name("cuobjdump")), "-sass",
+             str(build._lib_path(build.sources()[name]))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                kernels.setdefault(fn, {"source": name})
+                kernels[fn].setdefault("hmma", 0)
+            elif fn and "HMMA" in line:
+                kernels[fn]["hmma"] += 1
+    demangled = list(kernels)  # mangled, where cu++filt is missing
+    cxxfilt = nvcc.with_name("cu++filt")
+    if cxxfilt.exists():
+        demangled = subprocess.run(
+            [str(cxxfilt)], input="\n".join(kernels), capture_output=True,
+            text=True, timeout=60, check=True).stdout.splitlines()
+        check(len(demangled) == len(kernels), "cu++filt output")
+    rows = {pretty: kernels[mangled]
+            for pretty, mangled in zip(demangled, kernels)}
+    emit({"phase": "resources", "tool": "nvcc -Xptxas -v; cuobjdump -sass",
+          "kernels": rows})
+    for pretty, r in rows.items():
+        if "_tc_kernel" in pretty:
+            check(r.get("hmma", 0) > 0 and r.get("spill_stores") == 0
+                  and r.get("spill_loads") == 0,
+                  f"{pretty}: {r} (a tensor-core kernel must show HMMA "
+                  "and no spill)")
+    return rows
+
+
+# -- phase 4: kernels against their plain versions ---------------------------
 
 
 def flash_checks(torch, seed, time_ms):
@@ -160,19 +257,30 @@ def flash_checks(torch, seed, time_ms):
         dname = str(dtype).split(".")[-1]
         b_ms, b_by = bound(nbytes, ops, dname)
 
-        kernel_ms = time_ms(lambda: flash_attention_fwd(
+        kernel = time_ms.stats(lambda: flash_attention_fwd(
             q, k, v, causal=causal, sm_scale=scale, q_offset=off))
         plain_ms = time_ms(lambda: flash_attention_fwd_reference(
             q, k, v, causal=causal, sm_scale=scale, q_offset=off), iters=3)
+        # The yardstick: SDPA in the form that lets PyTorch pick its
+        # fastest backend. Offset 0 is exactly is_causal=True (top-left);
+        # other offsets need an explicit boolean mask.
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        mask = None
-        if causal:
+        sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                                 scale=scale, enable_gqa=True)
+        if causal and not any(offs):
+            lib, form = functools.partial(sdpa, is_causal=True), \
+                "is_causal=True"
+        elif causal:
             rows = torch.tensor(offs, device="cuda")[:, None] \
                 + torch.arange(sq, device="cuda")[None]
             mask = (torch.arange(sk, device="cuda")[None, None]
                     <= rows[:, :, None])[:, None]
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
+            lib, form = functools.partial(sdpa, attn_mask=mask), \
+                "attn_mask=bool [B, 1, Sq, Sk]"
+        else:
+            lib, form = sdpa, "no mask"
+        lib_diff = (lib().transpose(1, 2).float() - ro.float()).abs()
+        library = time_ms.stats(lib)
         row = {"phase": "kernels", "kernel": "flash_fwd", "case": label,
                "shape": {"b": b, "sq": sq, "sk": sk, "h": h, "h_kv": h_kv,
                          "d": d, "causal": causal, "q_offset": offsets,
@@ -181,9 +289,16 @@ def flash_checks(torch, seed, time_ms):
                "tol": f"{tol_rel} x max(2**-4, row's max |o|)",
                "max_err_over_tol": err_over_tol,
                "max_abs_err_lse": err_lse,
-               "tol_lse": tol_lse, "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "library": "scaled_dot_product_attention",
+               "tol_lse": tol_lse, "kernel_ms": kernel["median"],
+               "kernel_ms_stats": kernel,
+               "tflop_per_s": ops / kernel["median"] / 1e9,
+               "plain_ms": plain_ms, "library_ms": library["median"],
+               "library_ms_stats": library,
+               "library": f"scaled_dot_product_attention({form})",
+               # SDPA's own distance from the plain version, in the same
+               # per-row tolerance units (printed, not checked).
+               "library_err_over_tol":
+                   (lib_diff / (tol_rel * row_mag)).max().item(),
                "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         check(finite and err_over_tol <= 1 and err_lse <= tol_lse,
@@ -204,6 +319,22 @@ def flash_checks(torch, seed, time_ms):
     rows.append(case("non-causal ragged", 2, 512, 1000, None, False, bf16))
     rows.append(case("head_dim 128", 1, 512, 2048, [0], True, bf16, d=128))
     rows.append(case("float32", 1, 512, 2048, [0], True, torch.float32))
+    # The tensor-core kernel's edges: one row past the 8-row tile, a row
+    # and a key one past a 64-row tile with one head per group, a group
+    # of 8, a short block at the end of a full cache, and head_dim 128
+    # with an offset and without a mask.
+    rows.append(case("Sq 9 offset 611", 1, 9, 2048, [611], True, bf16,
+                     slot_of=8))
+    rows.append(case("MHA h 8 h_kv 8 Sq=Sk=129", 1, 129, 129, None, True,
+                     bf16, h=8, h_kv=8))
+    rows.append(case("group of 8: h 32 h_kv 4", 1, 1024, 1024, None, True,
+                     bf16, h_kv=4))
+    rows.append(case("Sq 48 offset 2000 slot view", 1, 48, 2048, [2000],
+                     True, bf16, slot_of=8))
+    rows.append(case("head_dim 128 offset 611", 1, 512, 2048, [611], True,
+                     bf16, d=128, slot_of=8))
+    rows.append(case("head_dim 128 non-causal Sq 200 Sk 129", 1, 200, 129,
+                     None, False, bf16, d=128))
     return rows
 
 
@@ -254,8 +385,9 @@ def flash_bwd_checks(torch, seed, time_ms):
 
         tensors, scalars = A._bwd_launch_args(q, k, v, o, lse, do, causal,
                                               scale)
-        dq_ms = time_ms(lambda: A._launch_bwd("dq", tensors, scalars))
-        dkv_ms = time_ms(lambda: A._launch_bwd("dkv", tensors, scalars))
+        dq_t = time_ms.stats(lambda: A._launch_bwd("dq", tensors, scalars))
+        dkv_t = time_ms.stats(lambda: A._launch_bwd("dkv", tensors,
+                                                    scalars))
         plain_ms = time_ms(lambda: A.flash_attention_bwd_reference(
             q, k, v, o, lse, do, causal=causal, sm_scale=scale), iters=3)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -263,7 +395,7 @@ def flash_bwd_checks(torch, seed, time_ms):
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                              scale=scale, enable_gqa=True)
         dot = do.transpose(1, 2)
-        library_ms = time_ms(lambda: torch.autograd.grad(
+        library = time_ms.stats(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True))
 
         dname = str(dtype).split(".")[-1]
@@ -280,20 +412,22 @@ def flash_bwd_checks(torch, seed, time_ms):
         shape = {"b": b, "sq": sq, "sk": sk, "h": h, "h_kv": h_kv, "d": d,
                  "causal": causal, "dtype": dname}
         rows = []
-        for kernel, names, ms in (("flash_bwd_dq", ("dq",), dq_ms),
-                                  ("flash_bwd_dkv", ("dk", "dv"), dkv_ms)):
+        for kernel, names, stats in (("flash_bwd_dq", ("dq",), dq_t),
+                                     ("flash_bwd_dkv", ("dk", "dv"), dkv_t)):
+            ms = stats["median"]
             kind = kernel.rsplit("_", 1)[1]
             row = {"phase": "kernels", "kernel": kernel, "case": label,
                    "shape": shape,
                    "max_abs_err": max(err[n][0] for n in names),
                    "tol": f"{tol_rel} x max(2**-4, row's max |grad|)",
                    "max_err_over_tol": max(err[n][1] for n in names),
-                   "kernel_ms": ms,
+                   "kernel_ms": ms, "kernel_ms_stats": stats,
                    "tflop_per_s": ops[kind] / ms / 1e9,
                    "plain_ms": plain_ms,
                    "plain": "flash_attention_bwd_reference, dq dk dv "
                             "together",
-                   "library_ms": library_ms,
+                   "library_ms": library["median"],
+                   "library_ms_stats": library,
                    "library": "autograd of scaled_dot_product_attention, "
                               "dq dk dv together",
                    "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1]}
@@ -352,15 +486,25 @@ def rms_checks(torch, seed, time_ms):
             dname = str(dtype).split(".")[-1]
             nbytes = (2 * x.numel() + w.numel()) * x.element_size()
             b_ms, b_by = bound(nbytes, 4 * x.numel(), dname)
+
+            def kernel():
+                return rms_norm(x, w, 1e-5)
+
+            def library():
+                return F.rms_norm(x, (d,), w, 1e-5)
+
+            kernel_t = time_ms.stats(kernel)
+            library_t = time_ms.stats(library)
             row = {"phase": "kernels", "kernel": "rms_norm",
                    "case": f"rows {n}", "shape": {"rows": n, "d": d,
                                                   "dtype": dname},
                    "max_abs_err": err, "tol": tol,
-                   "kernel_ms": time_ms(lambda: rms_norm(x, w, 1e-5)),
+                   "kernel_ms": kernel_t["median"],
+                   "kernel_ms_stats": kernel_t,
                    "plain_ms": time_ms(lambda: rms_norm_reference(x, w,
                                                                   1e-5)),
-                   "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w,
-                                                            1e-5)),
+                   "library_ms": library_t["median"],
+                   "library_ms_stats": library_t,
                    "library": "torch.nn.functional.rms_norm",
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
@@ -370,7 +514,7 @@ def rms_checks(torch, seed, time_ms):
     return rows
 
 
-# -- phase 4: serving ---------------------------------------------------------
+# -- phase 5: serving ---------------------------------------------------------
 
 
 def device_profile(torch, fn, steps):
@@ -527,7 +671,7 @@ def serve(torch, seed, smi):
     return row
 
 
-# -- phase 5: end-to-end logits against the CPU -------------------------------
+# -- phase 6: end-to-end logits against the CPU -------------------------------
 
 
 def to_cpu(tree):
@@ -542,7 +686,8 @@ def logits_check(torch, seed):
                                             init_kv_cache, init_params)
 
     cfg = dataclasses.replace(LlamaConfig.llama3_1b(), n_layers=2)
-    cfg_cpu = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg_cpu = dataclasses.replace(cfg, dtype=torch.float32,
+                                  attention="flash")
     params = init_params(cfg, torch.Generator("cuda").manual_seed(seed + 1),
                          "cuda")
     params_cpu = to_cpu(params)
@@ -594,7 +739,7 @@ def logits_check(torch, seed):
     return row
 
 
-# -- phase 6: gradients against the CPU ---------------------------------------
+# -- phase 7: gradients against the CPU ---------------------------------------
 
 
 def named_leaves(tree, prefix=""):
@@ -624,7 +769,10 @@ def grads_check(torch, seed):
 
     cfg = dataclasses.replace(LlamaConfig.llama3_1b(), n_layers=2,
                               remat=False)
-    cfg_cpu = dataclasses.replace(cfg, dtype=torch.float32)
+    # The CPU side runs the flash kernels' plain versions ("auto" would
+    # take the plain attention there), as the card runs the kernels.
+    cfg_cpu = dataclasses.replace(cfg, dtype=torch.float32,
+                                  attention="flash")
     params = init_params(cfg, torch.Generator("cuda").manual_seed(seed + 2),
                          "cuda")
     params_cpu = to_cpu(params)
@@ -673,7 +821,7 @@ def grads_check(torch, seed):
     return row
 
 
-# -- phase 7: training ----------------------------------------------------------
+# -- phase 8: training ----------------------------------------------------------
 
 
 def train(torch, seed, smi):
@@ -790,6 +938,7 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": per_kernel, "sources": sorted(_build.sources())})
 
+    kernel_resources(_build)
     time_ms = make_timer(torch)
     flash_rows = flash_checks(torch, args.seed, time_ms)
     bwd_rows = flash_bwd_checks(torch, args.seed, time_ms)
@@ -799,7 +948,7 @@ def main(argv=None) -> int:
     grads_check(torch, args.seed)
     trained = train(torch, args.seed, smi)
 
-    def entry(name, source, replaces, row):
+    def entry(name, source, replaces, row, *others):
         by_path = {"serve": served["launches"][name],
                    "train": trained["launches"][name]}
         return {"name": name, "route": "cuda", "source": source,
@@ -808,18 +957,28 @@ def main(argv=None) -> int:
                 "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "case": row["case"]}
+                "library_ms": row["library_ms"], "case": row["case"],
+                "other_cases": {o["case"]: {k: o[k] for k in (
+                    "ms", "bound_ms", "library_ms")} for o in (
+                    dict(r, ms=r["kernel_ms"]) for r in others)}}
 
-    decode = next(r for r in flash_rows if r["case"] == "decode 8 slots")
+    def fwd_row(label):
+        return next(r for r in flash_rows if r["case"] == label)
+
     rms8 = rms_rows[0]  # bf16, 8 rows: the decode step's shape
+    rms8192 = rms_rows[3]  # bf16, 8192 rows: the train step's shape
     dq, dkv = (next(r for r in bwd_rows if r["kernel"] == k
                     and r["case"] == "train b4 s2048")
                for k in ("flash_bwd_dq", "flash_bwd_dkv"))
     kernels = [
+        # The train step's shape, on the tensor-core kernel; decode (the
+        # 8-row kernel) and a 2048-token prefill beside it.
         entry("flash_fwd", "ray_tpu_torch/csrc/flash_fwd.cu",
-              "ray_tpu/ops/attention.py:56", decode),
+              "ray_tpu/ops/attention.py:56", fwd_row("train b4 s2048"),
+              fwd_row("decode 8 slots"),
+              fwd_row("prefill bucket 2048 offset 0")),
         entry("rms_norm", "ray_tpu_torch/csrc/rms_norm.cu",
-              "ray_tpu/ops/norms.py:44", rms8),
+              "ray_tpu/ops/norms.py:44", rms8, rms8192),
         entry("flash_bwd_dq", "ray_tpu_torch/csrc/flash_bwd.cu",
               "ray_tpu/ops/attention.py:330", dq),
         entry("flash_bwd_dkv", "ray_tpu_torch/csrc/flash_bwd.cu",

@@ -13,33 +13,58 @@
 // Arithmetic follows the TPU kernel: sm_scale is folded into q in the
 // storage dtype, scores and the running (m, l, acc) state are f32, p is
 // rounded to the storage dtype before the PV product, and
-// o = acc / max(l, 1e-30), lse = m + log(l).
+// o = acc / max(l, 1e-30), lse = m + log(l). A masked entry of p is
+// exactly 0, also in a row that has seen no key yet.
 //
-// What bounds it on the H100: at the serving shapes, memory bytes
-// (decode reads the whole visible KV cache for one query row per head)
-// and, for long prefills, arithmetic. This version runs its products as
-// f32 FMAs out of shared memory, not on the tensor cores, so a long
-// prefill is bound by shared-memory loads and a decode by latency. Its
-// design: one block of 256 threads per (batch, q head, q tile), with a
-// 64-row tile (4 threads per row) for prefill and an 8-row tile (one
-// warp per row) when Sq <= 8, so a decode row's work is spread over a
-// warp instead of 4 threads; 64-key K/V tiles read with 16-byte loads,
-// the next tile's loads issued into registers before the current tile's
-// arithmetic so device-memory latency overlaps compute; shared-memory
-// rows padded by one float so column reads are free of bank conflicts;
-// row max and sum reduced by warp shuffles; the key loop ends at the last
-// tile any row of the block can see, read from q_offset on the device
-// (no host sync); rows past Sq, and rows that see no key of a tile, skip
-// its arithmetic. Tensor-core products (mma/wgmma), TMA loads and warp
-// specialisation are later work.
+// What bounds it on the H100: at the training shape (batch 4, 2048
+// tokens, 32 query / 8 KV heads, head_dim 64, causal, bf16) ~6.9e10
+// operations against ~0.07 GB of inputs and outputs, so operations on the
+// tensor cores (~0.07 ms at 989 TFLOP/s); a long prefill likewise; a
+// decode step reads the whole visible KV cache for one query row per
+// head, so memory bytes. Three kernels, chosen by flash_fwd:
+//
+// - bf16 with Sq > 8: the tensor-core kernel (flash_fwd_tc_kernel). One
+//   block of 4 warps per (q head, batch, 64-row q tile), 16 q rows per
+//   warp, launched heaviest tile first. q is copied once by cp.async,
+//   scaled and rounded in shared memory, and held as ldmatrix A fragments
+//   for the whole key loop. 64-key K/V tiles stream through a two-stage
+//   cp.async ring (rows past Sk zero-filled, so no 0 * NaN reaches P V).
+//   S = (scale q) K^T is an mma.m16n8k16 per 16 x 8 tile with K's B
+//   fragments from ldmatrix; the online softmax runs on the C fragments,
+//   the row max reduced over the 4 lanes of a quad by shuffles and the
+//   row sum kept per lane until the end; P is rounded to bf16 and packed
+//   from C into A fragments in registers (tc::c_to_a) for O += P V, with
+//   V's B fragments from ldmatrix.trans. Only tiles that cross a row's
+//   diagonal or Sk evaluate the mask, and the key loop ends at the last
+//   tile the block's last row sees, read from q_offset on the device (no
+//   host sync). Shared helpers are in tensor_core.cuh.
+// - Sq <= 8 (decode, small prefill buckets), both dtypes: an 8-row tile,
+//   one warp per row, f32 FMAs (flash_fwd_kernel<T, D, 8>).
+// - float32 with Sq > 8: the same FMA kernel with a 64-row tile, which
+//   keeps the f32 tolerance (TF32 tensor cores would not).
+//
+// The FMA kernel: one block of 256 threads per (batch, q head, q tile);
+// 64-key K/V tiles read with 16-byte loads, the next tile's loads issued
+// into registers before the current tile's arithmetic so device-memory
+// latency overlaps compute; shared-memory rows padded by one float so
+// column reads are free of bank conflicts; row max and sum reduced by warp
+// shuffles; rows past Sq, and rows that see no key of a tile, skip its
+// arithmetic. wgmma, TMA loads and warp specialisation are later work.
 //
 // Plain C interface, bound with ctypes (ray_tpu_torch/ops/attention.py).
 // The launch goes on the caller's stream and allocates nothing; the
-// function returns cudaGetLastError().
+// function returns cudaGetLastError(). The tensor-core kernel needs
+// 16-byte aligned q, k, v and o rows and returns cudaErrorMisalignedAddress
+// otherwise (the wrapper checks first and raises a ValueError).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -243,28 +268,249 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int D, int BQ>
-int launch(const Params& p, int64_t batch, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, BQ>();
-  static bool configured = false;  // per instantiation
+// Launch `kernel` on `stream` with `smem` bytes of dynamic shared memory.
+// The attribute that a kernel needs to take more than 48 KiB is set on its
+// first launch only: `configured` is the caller's flag for this kernel.
+int start(void (*kernel)(Params), bool& configured, dim3 grid, int threads,
+          size_t smem, const Params& p, cudaStream_t stream) {
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D, BQ>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  const dim3 grid(static_cast<unsigned>((p.sq + BQ - 1) / BQ),
-                  static_cast<unsigned>(p.h), static_cast<unsigned>(batch));
-  flash_fwd_kernel<T, D, BQ><<<grid, THREADS, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Short query blocks (decode, small prefill buckets) take the 8-row tile.
+template <typename T, int D, int BQ>
+int launch(const Params& p, int64_t batch, cudaStream_t stream) {
+  static bool configured = false;
+  const dim3 grid(static_cast<unsigned>((p.sq + BQ - 1) / BQ),
+                  static_cast<unsigned>(p.h), static_cast<unsigned>(batch));
+  return start(flash_fwd_kernel<T, D, BQ>, configured, grid, THREADS,
+               smem_bytes<D, BQ>(), p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+using tc::bf16;
+using tc::BLOCK_ROWS;
+using tc::LOG2E;
+using tc::PAD;
+using tc::TC_THREADS;
+
+constexpr int BKV = 64;  // keys per streamed K/V tile
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(bf16) * (D + PAD) * (BLOCK_ROWS + 4 * BKV);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc_kernel(Params p) {
+  constexpr int LD = D + PAD;  // shared-memory row, in elements
+  constexpr int KD = D / 16;   // k steps of S = Q K^T over head_dim
+  constexpr int NK = BKV / 8;  // 8-key column tiles of s
+  constexpr int ND = D / 8;    // 8-wide column tiles of o
+
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [64][LD] scaled q
+  bf16* ks = qs + BLOCK_ROWS * LD;              // [2][BKV][LD] K ring
+  bf16* vs = ks + 2 * BKV * LD;                 // [2][BKV][LD] V ring
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // Under a causal mask the last q tiles see the most keys: run them first.
+  const int64_t q0 =
+      static_cast<int64_t>(gridDim.z - 1 - blockIdx.z) * BLOCK_ROWS;
+  const int64_t head = blockIdx.x, b = blockIdx.y;
+  const int64_t kvh = head / (p.h / p.h_kv);
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + head * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const int64_t off = p.q_offset ? p.q_offset[b] : 0;
+
+  const int64_t q_last = (q0 + BLOCK_ROWS < p.sq ? q0 + BLOCK_ROWS : p.sq) - 1;
+  int64_t kv_end = p.sk;
+  if (p.causal && off + q_last + 1 < kv_end) kv_end = off + q_last + 1;
+  const int64_t n_tiles = (kv_end + BKV - 1) / BKV;
+
+  tc::load_rows_async<D, BLOCK_ROWS>(qs, q, p.q_ss, q0, p.sq);
+  tc::cp_async_commit();
+  if (n_tiles > 0) {
+    tc::load_rows_async<D, BKV>(ks, k, p.k_ss, 0, p.sk);
+    tc::load_rows_async<D, BKV>(vs, v, p.v_ss, 0, p.sk);
+  }
+  tc::cp_async_commit();
+
+  tc::cp_async_wait<1>();  // q has landed
+  tc::scale_rows<D, BLOCK_ROWS>(qs, tc::round_bf16(p.sm_scale));
+  __syncthreads();
+  const int a_off = tc::a_offset(lane, LD), b_off = tc::b_offset(lane, LD);
+  uint32_t qf[KD][4];
+  {
+    const uint32_t qa = tc::smem_addr(qs + warp * 16 * LD + a_off);
+#pragma unroll
+    for (int kc = 0; kc < KD; ++kc) tc::ldmatrix_x4(qf[kc], qa + 2 * kc * 16);
+  }
+
+  // This thread's rows of the warp's 16: fragment rows g and g + 8. m
+  // starts finite, so a masked score (-inf) gives p = 0 exactly and the
+  // correction exp(m - m_new) is never exp(-inf + inf). l is this lane's
+  // share of the row sum; the quad's shares are added at the end.
+  const int64_t row0 = q0 + warp * 16 + g;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int64_t it = 0; it < n_tiles; ++it) {
+    const int st = static_cast<int>(it & 1);
+    if (it + 1 < n_tiles) {
+      tc::load_rows_async<D, BKV>(ks + (st ^ 1) * BKV * LD, k, p.k_ss,
+                                  (it + 1) * BKV, p.sk);
+      tc::load_rows_async<D, BKV>(vs + (st ^ 1) * BKV * LD, v, p.v_ss,
+                                  (it + 1) * BKV, p.sk);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // tile `it` has landed (this thread's copies)
+    __syncthreads();         // ... and every thread's
+    const uint32_t kt = tc::smem_addr(ks + st * BKV * LD);
+    const uint32_t vt = tc::smem_addr(vs + st * BKV * LD);
+    const int64_t k0 = it * BKV;
+
+    // s = (scale q) K^T: 16 rows x BKV keys per warp.
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KD; ++kc)
+#pragma unroll
+      for (int nb = 0; nb < NK / 2; ++nb) {
+        uint32_t kb[4];
+        tc::ldmatrix_x4(kb, kt + 2 * (nb * 16 * LD + b_off + kc * 16));
+        tc::mma_bf16(s[2 * nb], qf[kc], kb[0], kb[1]);
+        tc::mma_bf16(s[2 * nb + 1], qf[kc], kb[2], kb[3]);
+      }
+
+    // Only a tile past Sk, or past the block's first row's diagonal,
+    // evaluates the mask.
+    if (k0 + BKV > p.sk || (p.causal && k0 + BKV - 1 > off + q0)) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t key = k0 + j * 8 + 2 * t + (e & 1);
+          const int64_t row = row0 + 8 * (e >> 1);
+          if (key >= p.sk || (p.causal && key > off + row))
+            s[j][e] = -INFINITY;
+        }
+    }
+
+    // Online softmax on the C fragments: the row max over the quad, p in
+    // place of s, the running state rescaled.
+    float m_new[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);
+    float corr[2], m2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
+      m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 2));
+      corr[i] = exp2f((m[i] - m_new[i]) * LOG2E);
+      m[i] = m_new[i];
+      m2[i] = m_new[i] * LOG2E;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pj = exp2f(fmaf(s[j][e], LOG2E, -m2[e >> 1]));
+        l[e >> 1] += pj;
+        s[j][e] = pj;
+      }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+
+    // acc += P V: p in bf16 as the A operand, V through ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t pf[4];
+      tc::c_to_a(pf, s, kk);
+#pragma unroll
+      for (int db = 0; db < D / 16; ++db) {
+        uint32_t vb[4];
+        tc::ldmatrix_x4_trans(vb, vt + 2 * (kk * 16 * LD + a_off + db * 16));
+        tc::mma_bf16(acc[2 * db], pf, vb[0], vb[1]);
+        tc::mma_bf16(acc[2 * db + 1], pf, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+  tc::cp_async_wait<0>();  // nothing in flight at exit (no key tile at all)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int64_t row = row0 + 8 * i;
+    if (row >= p.sq) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + row * p.o_ss +
+              head * p.o_sh;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(o + j * 8 + 2 * t) =
+          tc::pack_bf16(acc[j][2 * i] / lc, acc[j][2 * i + 1] / lc);
+    if (t == 0) p.lse[(b * p.h + head) * p.sq + row] = m[i] + logf(lc);
+  }
+}
+
+template <int D>
+int launch_tc(const Params& p, int64_t batch, cudaStream_t stream) {
+  static bool configured = false;
+  // Rows are copied as 16-byte pieces; o is written as 4-byte pairs.
+  const void* ptrs[] = {p.q, p.k, p.v, p.o};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  const int64_t strides[] = {p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss, p.k_sh,
+                             p.v_sb, p.v_ss, p.v_sh};
+  for (int64_t st : strides)
+    if (st % 8) return static_cast<int>(cudaErrorMisalignedAddress);
+  const int64_t tiles = (p.sq + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(p.h), static_cast<unsigned>(batch),
+                  static_cast<unsigned>(tiles));
+  return start(flash_fwd_tc_kernel<D>, configured, grid, TC_THREADS,
+               tc_smem_bytes<D>(), p, stream);
+}
+
+// Short query blocks (decode, small prefill buckets) take the 8-row tile;
+// longer bf16 blocks the tensor cores; longer f32 blocks the 64-row FMA
+// tile.
 template <typename T, int D>
 int launch_tile(const Params& p, int64_t batch, cudaStream_t s) {
   if (p.sq <= 8) return launch<T, D, 8>(p, batch, s);
-  return launch<T, D, 64>(p, batch, s);
+  if constexpr (std::is_same_v<T, bf16>) {
+    return launch_tc<D>(p, batch, s);
+  } else {
+    return launch<T, D, 64>(p, batch, s);
+  }
 }
 
 template <typename T>

@@ -1,7 +1,9 @@
 // Tensor-core and asynchronous-copy helpers for bf16 kernels (sm_80 and
 // later; the port builds for sm_90a): cp.async copies into shared memory,
-// ldmatrix fragment loads and the m16n8k16 bf16 mma with f32
-// accumulation.
+// ldmatrix fragment loads, the m16n8k16 bf16 mma with f32 accumulation,
+// and the tile copies that the flash kernels (flash_fwd.cu, flash_bwd.cu)
+// share: 128-thread blocks of 4 warps, bf16 tiles in shared memory with
+// rows padded by 16 bytes.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4):
@@ -111,6 +113,65 @@ __device__ __forceinline__ int a_offset(int lane, int ld) {
 
 __device__ __forceinline__ int b_offset(int lane, int ld) {
   return ((lane % 8) + (lane / 16) * 8) * ld + ((lane / 8) % 2) * 8;
+}
+
+// ---------------------------------------------------------------------------
+// Tiles of the flash kernels
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_THREADS = 128;  // 4 warps
+constexpr int BLOCK_ROWS = 64;   // output rows of a block: q rows or keys
+constexpr int PAD = 8;           // bf16 of padding per shared-memory row
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Round an f32 value to bf16 and back.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Rows [r0, r0 + ROWS) of one head of a [.., S, heads, D] bf16 tensor into
+// a [ROWS][D + PAD] shared tile: 16-byte cp.async copies, neighbouring
+// threads on neighbouring 16 bytes of a row; rows at or past n are
+// zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* head,
+                                                int64_t row_stride, int64_t r0,
+                                                int64_t n) {
+  constexpr int CPR = D / 8;  // 16-byte pieces per row
+  static_assert(ROWS * CPR % TC_THREADS == 0, "whole pieces per thread");
+  const uint32_t base = smem_addr(dst);
+#pragma unroll
+  for (int j = 0; j < ROWS * CPR / TC_THREADS; ++j) {
+    const int i = threadIdx.x + j * TC_THREADS;
+    const int r = i / CPR, c = i % CPR;
+    const bool valid = r0 + r < n;
+    const bf16* src = valid ? head + (r0 + r) * row_stride + c * 8 : head;
+    cp_async_16(base + 2 * (r * (D + PAD) + c * 8), src, valid);
+  }
+}
+
+// Multiply the pieces of a tile that this thread copied with
+// load_rows_async by `scale` and round to bf16: the TPU kernels' q *
+// sm_scale in q's dtype. The thread's copies must have landed.
+template <int D, int ROWS>
+__device__ __forceinline__ void scale_rows(bf16* tile, float scale) {
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int j = 0; j < ROWS * CPR / TC_THREADS; ++j) {
+    const int i = threadIdx.x + j * TC_THREADS;
+    uint4* piece =
+        reinterpret_cast<uint4*>(tile + (i / CPR) * (D + PAD) + (i % CPR) * 8);
+    uint4 v = *piece;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      h[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    *piece = v;
+  }
 }
 
 }  // namespace tc

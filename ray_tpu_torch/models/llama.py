@@ -5,8 +5,8 @@ of tensors in the JAX package's layout (layers stacked on axis 0:
 ``wq [L, d, H, hd]``, ``wk``/``wv [L, d, Hkv, hd]``, ``wo [L, H, hd, d]``,
 ``w1``/``w3 [L, d, F]``, ``w2 [L, F, d]``), so :func:`params_from_jax`
 is a conversion of array types and nothing else. Layers run as a Python
-loop. Attention goes through the flash kernels and every norm through
-the RMSNorm kernel on CUDA tensors; the projections and the output head
+loop. Attention goes through the flash kernels (as ``cfg.attention``
+routes it) and every norm through the RMSNorm kernel on CUDA tensors; the projections and the output head
 are plain matrix products (``torch.matmul``), as the JAX package leaves
 them to XLA. :func:`forward_hidden`, :func:`forward` and :func:`loss_fn`
 are differentiable (the training path); :func:`forward_with_cache` is
@@ -28,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.ops.attention import flash_attention, flash_attention_fwd
+from ray_tpu_torch.ops.attention import (attention_reference,
+                                         flash_attention, flash_attention_fwd)
 from ray_tpu_torch.ops.cross_entropy import (fused_linear_cross_entropy,
                                              softmax_cross_entropy)
 from ray_tpu_torch.ops.norms import rms_norm
@@ -59,8 +60,11 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
-    # Mirrors the JAX field; the port always runs the flash kernels (the
-    # ring and Ulysses paths need parallel/, not ported yet).
+    # "auto" | "flash" | "reference" | "ring" | "ulysses", routed by
+    # forward_hidden as JAX's _attention routes it: "auto" is the flash
+    # kernels on CUDA and the plain attention elsewhere. "ring" and
+    # "ulysses" need parallel/ (not ported yet) and raise. The cached
+    # (serving) path always takes the flash forward, as in JAX.
     attention: str = "auto"
     # False | True | "gate" | "mlp", validated as in JAX by
     # forward_hidden. Only False is ported: the others raise when a
@@ -292,13 +296,44 @@ def _requires_grad(tree) -> bool:
     return tree.requires_grad
 
 
+_PARALLEL_QUEUE = ("attention={!r} (context-parallel attention) needs "
+                   "parallel/, not ported yet: ROADMAP.md Queue 1, item 5")
+
+
+def _attention_fn(cfg: LlamaConfig, device: torch.device):
+    """The causal attention ``(q, k, v) -> o`` over ``[B, S, H, D]``
+    that ``cfg.attention`` names, as JAX's ``_attention`` routes it
+    (llama.py:192-223): "flash" is :func:`flash_attention` (the kernels
+    on CUDA, their plain versions on the CPU); "auto" is flash on a CUDA
+    device and "reference" elsewhere; "reference" is the plain
+    :func:`attention_reference`, which repeats GQA's KV heads as JAX
+    does. "ring" and "ulysses" raise NotImplementedError."""
+    impl = cfg.attention
+    if impl == "auto":
+        impl = "flash" if device.type == "cuda" else "reference"
+    scale = cfg.head_dim ** -0.5
+    if impl == "flash":
+        return lambda q, k, v: flash_attention(q, k, v, causal=True,
+                                               sm_scale=scale)
+    if impl == "reference":
+        return lambda q, k, v: attention_reference(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
+            scale).transpose(1, 2)
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(_PARALLEL_QUEUE.format(impl))
+    raise ValueError(f"attention={impl!r}: expected 'auto', 'flash', "
+                     "'reference', 'ring' or 'ulysses'")
+
+
 def forward_hidden(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
                    positions: Optional[torch.Tensor] = None):
     """tokens: ``[B, S]`` int → final-norm hidden states ``[B, S, D]``
-    (``cfg.dtype``). Causal attention through the flash kernels (top-left
-    mask, query offset 0). Differentiable with respect to ``params``."""
+    (``cfg.dtype``). Causal attention (top-left mask) as ``cfg.attention``
+    routes it (:func:`_attention_fn`). Differentiable with respect to
+    ``params``."""
     _check_remat(cfg, params)
     device = tokens.device
+    attention = _attention_fn(cfg, device)
     if positions is not None:
         cos, sin = rope_from_positions(positions.to(device), cfg.head_dim,
                                        cfg.rope_theta)
@@ -311,9 +346,7 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
         q, k, v = _qkv(cfg, h, lp)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        attn = flash_attention(q, k, v, causal=True,
-                               sm_scale=cfg.head_dim ** -0.5)
-        x = _attn_out_and_mlp(cfg, x, attn, lp)
+        x = _attn_out_and_mlp(cfg, x, attention(q, k, v), lp)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -3,9 +3,11 @@
 Counterpart of ``ray_tpu/ops/attention.py`` and of
 ``ray_tpu/models/llama.py:_cached_attention``.
 
-- :func:`flash_attention_fwd` runs the CUDA kernel ``csrc/flash_fwd.cu``
-  (the port of the TPU kernel ``_flash_fwd_kernel``) on CUDA tensors and
-  its plain version :func:`flash_attention_fwd_reference` on CPU tensors.
+- :func:`flash_attention_fwd` runs the CUDA kernels of
+  ``csrc/flash_fwd.cu`` (the port of the TPU kernel ``_flash_fwd_kernel``:
+  bf16 on the tensor cores when Sq > 8, an 8-row FMA tile when Sq <= 8,
+  FMA tiles for f32) on CUDA tensors and its plain version
+  :func:`flash_attention_fwd_reference` on CPU tensors.
   The kernel takes a per-sequence query offset, so the same call computes
   the TPU kernel's causal attention (offset 0) and the KV-cache attention
   of prefill and decode (offset = the sequence's start position). It is
@@ -145,11 +147,18 @@ def _check_cuda_args(q, k, v, q_offset,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError(f"{name} kernel needs the head_dim axis "
                          "contiguous")
-    # K/V rows are read as 16-byte vectors.
+    # K/V rows are read as 16-byte vectors, and so are the rows of a bf16
+    # q (the tensor-core kernels copy it in 16-byte pieces).
     elt = k.element_size()
-    if any(t.data_ptr() % 16 or any(t.stride(i) * elt % 16 for i in range(3))
-           for t in (k, v)):
+
+    def misaligned(t):
+        return t.data_ptr() % 16 or any(t.stride(i) * elt % 16
+                                        for i in range(3))
+
+    if misaligned(k) or misaligned(v):
         raise ValueError(f"{name} kernel needs 16-byte aligned K/V rows")
+    if q.dtype == torch.bfloat16 and misaligned(q):
+        raise ValueError(f"{name}: the bf16 kernels need a 16-byte aligned q")
     if b > 65535 or h > 65535:
         raise ValueError(f"{name} kernel takes at most 65535 sequences and "
                          "heads")
@@ -311,12 +320,11 @@ def _check_bwd_args(q, k, v, o, lse, do) -> None:
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError(f"flash_attention_bwd: o and do must have q's dtype "
                         f"{q.dtype}, got {o.dtype}, {do.dtype}")
-    # The bf16 kernels also copy q and do rows as 16-byte pieces.
-    if q.dtype == torch.bfloat16:
-        for label, t in (("q", q), ("do", do)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention_bwd: the bf16 kernels "
-                                 f"need a 16-byte aligned {label}")
+    # The bf16 kernels also copy do rows as 16-byte pieces (q is checked
+    # by _check_cuda_args).
+    if q.dtype == torch.bfloat16 and do.data_ptr() % 16:
+        raise ValueError("flash_attention_bwd: the bf16 kernels need a "
+                         "16-byte aligned do")
 
 
 def flash_attention_bwd(

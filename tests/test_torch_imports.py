@@ -139,6 +139,28 @@ def test_bwd_args_need_aligned_bf16_q_and_do(dtype):
             _check_bwd_args(q, k, k, aligned, lse, do)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_fwd_args_need_aligned_bf16_q(dtype):
+    """The bf16 tensor-core forward copies q rows as 16-byte pieces, so a
+    bf16 q that starts off a 16-byte boundary, or whose row stride is
+    not a multiple of 16 bytes, is refused by name before any launch;
+    the f32 kernels read q element by element and take it."""
+    from ray_tpu_torch.ops.attention import _check_cuda_args
+
+    shape = (1, 4, 2, 64)
+    k = torch.zeros(1, 4, 1, 64, dtype=dtype)
+    shifted = torch.zeros(512 + 1, dtype=dtype)[1:].view(shape)
+    strided = torch.zeros(1, 4, 2, 68, dtype=dtype)[..., :64]
+    assert shifted.data_ptr() % 16
+    for q in (shifted, strided):
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="aligned q$"):
+                _check_cuda_args(q, k, k, None)
+        else:
+            _check_cuda_args(q, k, k, None)
+    _check_cuda_args(torch.zeros(shape, dtype=dtype), k, k, None)
+
+
 def test_unknown_device_raises():
     from ray_tpu_torch.ops.attention import (flash_attention_bwd,
                                              flash_attention_fwd)

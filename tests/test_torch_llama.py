@@ -7,6 +7,8 @@ between the JAX cached and full forwards — the same math in f32, summed
 in a different order over two layers.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,8 +36,14 @@ def _tokens(seed, shape, vocab):
                                                 dtype=np.int32)
 
 
-def test_forward_matches_jax(model):
+@pytest.mark.parametrize("attention", ["reference", "flash", "auto"])
+def test_forward_matches_jax(model, attention):
+    """Each attention route of the port's forward_hidden ("auto" is the
+    plain attention on the CPU, "flash" the flash kernels' plain version)
+    against JAX's forward on its reference attention."""
     jcfg, jparams, cfg, params = model
+    jcfg = dataclasses.replace(jcfg, attention="reference")
+    cfg = dataclasses.replace(cfg, attention=attention)
     toks = _tokens(0, (2, 16), cfg.vocab_size)
     ref = np.asarray(jllama.forward(jparams, jnp.asarray(toks), jcfg))
     got = llama.forward(params, torch.from_numpy(toks), cfg).numpy()

@@ -121,6 +121,23 @@ def test_remat_modes_are_validated():
     assert torch.isfinite(loss)
 
 
+@pytest.mark.parametrize("attention,error,match", [
+    ("ring", NotImplementedError, "Queue 1, item 5"),
+    ("ulysses", NotImplementedError, "Queue 1, item 5"),
+    ("flash2", ValueError, "attention='flash2'"),
+])
+def test_attention_routes_are_validated(attention, error, match):
+    """cfg.attention as JAX routes it: the context-parallel routes are
+    not ported and raise at the call (no quiet fall back to one-device
+    attention); an unknown route raises ValueError. The other routes
+    are held against JAX in test_torch_llama.py."""
+    _, _, cfg, params = _model(False, True)
+    _, batch = _batch(1, 1, 8, cfg.vocab_size)
+    with pytest.raises(error, match=match):
+        llama.loss_fn(params, batch,
+                      dataclasses.replace(cfg, attention=attention))
+
+
 # -- the optimizer against optax ----------------------------------------------
 
 
