@@ -32,12 +32,27 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              (f32, plain versions).
 7. grads   — loss_fn and the gradient of every parameter of the 1B model
              cut to 2 layers, on the card (bf16, kernels) against the CPU
-             (f32, plain versions), each leaf held to its own limit.
-8. train   — three AdamW steps of Llama-3.2-1B at full width and depth
-             (batch 4 x 2048 tokens, one fixed random batch) through
-             make_train_step; checks finite, falling loss and the launches
-             of every kernel in each step; prints step time, tokens/s,
-             peak memory, and a profiled fourth step's top kernels.
+             (f32, plain versions), each leaf held to its own limit; and
+             the same on the card with remat="gate" against remat=False
+             on the card, to 1e-6 of each leaf (the same bf16 ops).
+8. train   — three AdamW steps of Llama-3.2-1B at full width and depth at
+             bench.py's configuration (remat="gate", batch 4 x 2048
+             tokens, bf16 moments, fused CE; one fixed random batch)
+             through make_train_step; checks finite, falling loss and the
+             launches of every kernel in each step (the flash forward once
+             per layer: it is saved across the checkpoint, not rerun);
+             prints step time, tokens/s, peak memory, and a profiled
+             fourth step's top kernels.
+9. memory  — at each of remat=False, True, "gate" and "mlp": the peak
+             memory of the forward and backward alone, then of two whole
+             steps, each from a fresh reset, beside plan_llama's
+             prediction and their ratio; the second step's time and a
+             third step's device busy time (profiler); and the host's
+             time per step, read at 1 x 128 tokens, where the card
+             waits on the host. Checks the forward and backward's peaks
+             in the order False > "mlp" > "gate" > True, each within
+             0.8-1.25 of the plan, and every checkpointing mode's
+             whole-step peak below remat=False's.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``. Any
 failed check exits non-zero before the last line; with no CUDA device
@@ -749,6 +764,11 @@ def named_leaves(tree, prefix=""):
     return [(prefix, tree)]
 
 
+# remat="gate" against remat=False, both on the card: the same bf16 ops
+# on the same inputs (the recompute reruns them as they ran), so each
+# leaf's relative error stays far below one bf16 rounding (2**-9).
+REMAT_GRAD_LIMIT = 1e-6
+
 # Relative error ||g_card - g_cpu|| / ||g_cpu|| allowed for each leaf of
 # the 2-layer 1B model. The card runs bf16 activations, weights and
 # gradients; the CPU f32 on the same bf16 weight values, so each leaf
@@ -765,7 +785,8 @@ GRAD_LIMITS = {
 
 def grads_check(torch, seed):
     from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
-    from ray_tpu_torch.ops.attention import flash_attention_bwd
+    from ray_tpu_torch.ops.attention import (flash_attention_bwd,
+                                             flash_attention_fwd)
 
     cfg = dataclasses.replace(LlamaConfig.llama3_1b(), n_layers=2,
                               remat=False)
@@ -773,6 +794,7 @@ def grads_check(torch, seed):
     # take the plain attention there), as the card runs the kernels.
     cfg_cpu = dataclasses.replace(cfg, dtype=torch.float32,
                                   attention="flash")
+    cfg_remat = dataclasses.replace(cfg, remat="gate")
     params = init_params(cfg, torch.Generator("cuda").manual_seed(seed + 2),
                          "cuda")
     params_cpu = to_cpu(params)
@@ -786,66 +808,105 @@ def grads_check(torch, seed):
             t.requires_grad_()
         loss, _ = loss_fn(p, {k: v.to(device) for k, v in batch.items()}, c)
         gs = torch.autograd.grad(loss, [t for _, t in named])
+        for _, t in named:
+            t.requires_grad_(False)
         return loss.item(), {n: g.float().cpu()
                              for (n, _), g in zip(named, gs)}
+
+    def compare(got, ref, limits):
+        leaves = {}
+        for name, r in ref.items():
+            g = got[name]
+            rel = ((g - r).norm() / r.norm()).item()
+            cos = (torch.dot(g.flatten().double(), r.flatten().double())
+                   / (g.double().norm() * r.double().norm())).item()
+            leaves[name] = {"rel_err": rel, "limit": limits.get(name),
+                            "cosine": cos,
+                            "finite": bool(torch.isfinite(g).all())}
+        return leaves
 
     dq0 = flash_attention_bwd.dq_launches
     loss, got = grads(params, cfg, "cuda")
     dq_launches = flash_attention_bwd.dq_launches - dq0
+    fwd0, dq0 = flash_attention_fwd.launches, flash_attention_bwd.dq_launches
+    loss_remat, got_remat = grads(params, cfg_remat, "cuda")
+    remat_launches = {"flash_fwd": flash_attention_fwd.launches - fwd0,
+                      "flash_bwd_dq": flash_attention_bwd.dq_launches - dq0}
     loss_ref, ref = grads(params_cpu, cfg_cpu, "cpu")
-    leaves = {}
-    for name, r in ref.items():
-        g = got[name]
-        rel = ((g - r).norm() / r.norm()).item()
-        cos = (torch.dot(g.flatten().double(), r.flatten().double())
-               / (g.double().norm() * r.double().norm())).item()
-        leaves[name] = {"rel_err": rel, "limit": GRAD_LIMITS.get(name),
-                        "cosine": cos,
-                        "finite": bool(torch.isfinite(g).all())}
+    leaves = compare(got, ref, GRAD_LIMITS)
+    remat_leaves = compare(got_remat, got,
+                           dict.fromkeys(GRAD_LIMITS, REMAT_GRAD_LIMIT))
     row = {"phase": "grads", "model": "llama3_1b cut to 2 layers",
            "batch": [2, 256], "loss": loss, "loss_cpu": loss_ref,
            "dq_launches": dq_launches,
            "check": "per leaf ||g - g_cpu|| / ||g_cpu|| <= limit "
                     "(cosine printed, not checked)",
-           "leaves": leaves}
+           "leaves": leaves,
+           "remat_gate": {
+               "check": f"per leaf ||g_gate - g|| / ||g|| <= "
+                        f"{REMAT_GRAD_LIMIT}, both on the card",
+               "loss": loss_remat, "launches": remat_launches,
+               "leaves": remat_leaves}}
     emit(row)
     check(set(leaves) == set(GRAD_LIMITS), f"leaves {sorted(leaves)}")
     check(dq_launches == cfg.n_layers,
           f"grads: {dq_launches} dq launches for {cfg.n_layers} layers")
+    check(remat_launches == {"flash_fwd": cfg.n_layers,
+                             "flash_bwd_dq": cfg.n_layers},
+          f"grads, remat='gate': launches {remat_launches} for "
+          f"{cfg.n_layers} layers")
     check(abs(loss - loss_ref) <= 1e-2 * abs(loss_ref),
           f"grads: loss {loss} on the card, {loss_ref} on the CPU")
-    bad = [n for n, v in leaves.items()
-           if not (v["finite"] and v["rel_err"] <= v["limit"])]
-    check(not bad, f"grads: leaves over their limits: "
-                   f"{ {n: leaves[n] for n in bad} }")
+    check(abs(loss_remat - loss) <= REMAT_GRAD_LIMIT * abs(loss),
+          f"grads: loss {loss_remat} with remat='gate', {loss} without")
+    for label, rows in (("", leaves), (", remat='gate'", remat_leaves)):
+        bad = [n for n, v in rows.items()
+               if not (v["finite"] and v["rel_err"] <= v["limit"])]
+        check(not bad, f"grads{label}: leaves over their limits: "
+                       f"{ {n: rows[n] for n in bad} }")
     return row
 
 
 # -- phase 8: training ----------------------------------------------------------
 
 
-def train(torch, seed, smi):
-    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+
+
+def train_setup(torch, cfg, seed):
+    """bench.py's optimizer (make_optimizer(3e-4, warmup_steps=0, bf16
+    moments)), random weights from ``seed`` with their optimizer state,
+    and one random batch of TRAIN_BATCH x TRAIN_SEQ tokens, on the card.
+    Returns ``(tx, state, batch)``."""
+    from ray_tpu_torch.models.llama import init_params
     from ray_tpu_torch.models.training import (init_train_state,
-                                               make_optimizer,
-                                               make_train_step)
+                                               make_optimizer)
+
+    tx = make_optimizer(3e-4, warmup_steps=0, moment_dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                         "cuda")
+    state = init_train_state(params, tx)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(
+                               seed))
+    return tx, state, {"tokens": tokens,
+                       "targets": torch.roll(tokens, -1, dims=1)}
+
+
+def train(torch, seed, smi):
+    from ray_tpu_torch.models.llama import LlamaConfig, loss_fn
+    from ray_tpu_torch.models.training import make_train_step
     from ray_tpu_torch.ops.attention import (flash_attention_bwd,
                                              flash_attention_fwd)
     from ray_tpu_torch.ops.norms import rms_norm
 
-    cfg = dataclasses.replace(LlamaConfig.llama3_1b(), remat=False)
-    batch_size, seq, steps = 4, 2048, 3
+    # bench.py's configuration: remat="gate", batch 4 x 2048, bf16 moments.
+    cfg = dataclasses.replace(LlamaConfig.llama3_1b(), remat="gate")
+    batch_size, seq, steps = TRAIN_BATCH, TRAIN_SEQ, 3
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed + 3),
-                         "cuda")
-    tx = make_optimizer(3e-4, warmup_steps=0, moment_dtype=torch.bfloat16)
-    state = init_train_state(params, tx)
+    tx, state, batch = train_setup(torch, cfg, seed + 3)
     step = make_train_step(lambda p, b: loss_fn(p, b, cfg), tx)
-    tokens = torch.randint(0, cfg.vocab_size, (batch_size, seq),
-                           device="cuda",
-                           generator=torch.Generator("cuda").manual_seed(
-                               seed + 3))
-    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
@@ -873,14 +934,20 @@ def train(torch, seed, smi):
                         "launches": {k: c1[k] - c0[k] for k in c1}})
     launches = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The flash forward is saved across each layer's checkpoint, so it
+    # runs once per layer. rms_norm runs twice per layer and once at the
+    # end in the forward, and the backward's recompute of each layer
+    # reruns both of its norms (it stops after the last saved value,
+    # which comes after mlp_norm): 4 L + 1.
     per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
                 "flash_bwd_dkv": cfg.n_layers,
-                "rms_norm": 2 * cfg.n_layers + 1}
+                "rms_norm": 4 * cfg.n_layers + 1}
     profile = device_profile(torch, lambda: step(state, batch), 1)
     steady_ms = statistics.mean(r["ms"] for r in records[1:])
     losses = [r["loss"] for r in records]
     row = {"phase": "train", "model": "llama3_1b", "layers": cfg.n_layers,
            "dim": cfg.dim, "batch": batch_size, "seq": seq,
+           "remat": cfg.remat, "fused_ce": cfg.fused_ce,
            "optimizer": "make_optimizer(3e-4, warmup_steps=0, "
                         "moment_dtype=bfloat16)",
            "setup_s": setup_s, "steps": records,
@@ -899,7 +966,121 @@ def train(torch, seed, smi):
               f"{r['grad_norm']}")
     check(losses[-1] < losses[0],
           f"train: loss did not fall over {steps} steps: {losses}")
-    del state, params
+    del state, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phase 9: peak memory under each remat mode against the plan -------------
+
+
+# The host's time per step is read at this many tokens (batch 1): the
+# same ops and launches as at TRAIN_BATCH x TRAIN_SEQ (the fused CE
+# blocks the vocabulary, not the tokens), but so little work for the card
+# that it waits on the host, and the wall time is the host's.
+HOST_SEQ = 128
+
+
+def memory(torch, seed, smi):
+    from ray_tpu_torch.models.llama import LlamaConfig, loss_fn
+    from ray_tpu_torch.models.memory_plan import plan_llama
+    from ray_tpu_torch.models.training import make_train_step
+
+    base = LlamaConfig.llama3_1b()
+    tx, state, batch = train_setup(torch, base, seed + 4)
+    small = {k: v[:1, :HOST_SEQ].contiguous() for k, v in batch.items()}
+    modes = {}
+    leaves = [t for _, t in named_leaves(state.params)]
+    for remat in (False, True, "gate", "mlp"):
+        cfg = dataclasses.replace(base, remat=remat)
+        step = make_train_step(lambda p, b, cfg=cfg: loss_fn(p, b, cfg), tx)
+        # Forward and backward alone (what the checkpoint changes), then
+        # two whole steps (the update too), each from a fresh peak.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for t in leaves:
+            t.requires_grad_(True)
+        grads = torch.autograd.grad(loss_fn(state.params, batch, cfg)[0],
+                                    leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        del grads
+        peak_fwd_bwd = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        profile = device_profile(torch, lambda: step(state, batch), 1)
+        # The host's time: one step to warm up, the mean of three, then a
+        # profiled one for the card's share of that wall time.
+        state, _ = step(state, small)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, _ = step(state, small)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 3
+        host_profile = device_profile(torch, lambda: step(state, small), 1)
+        plan = plan_llama(cfg, {"data": 1}, batch_per_chip=TRAIN_BATCH,
+                          seq_len=TRAIN_SEQ, moment_dtype_bytes=2,
+                          remat=remat)
+        plan_bytes = plan["per_chip_gib"]["total"] * (1 << 30)
+        modes[str(remat)] = {"peak_fwd_bwd_gb": peak_fwd_bwd / 1e9,
+                             "plan_gb": plan_bytes / 1e9,
+                             "ratio": peak_fwd_bwd / plan_bytes,
+                             "peak_step_gb": peak / 1e9,
+                             "plan_gib": plan["per_chip_gib"],
+                             "step_ms": step_ms,
+                             "device_busy_ms": profile[
+                                 "device_busy_ms_per_step"],
+                             "host_ms": host_ms,
+                             "host_step_device_busy_ms": host_profile[
+                                 "device_busy_ms_per_step"],
+                             "host_step_launches": host_profile[
+                                 "kernel_launches_per_step"],
+                             "loss": metrics["loss"].item()}
+    row = {"phase": "memory", "model": "llama3_1b", "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "moments": "bfloat16",
+           "peak_fwd_bwd": "torch.cuda.max_memory_allocated over loss_fn "
+                           "and its gradient alone, from "
+                           "reset_peak_memory_stats; ratio is it over the "
+                           "plan",
+           "peak_step": "the same over two whole steps from their own "
+                        "reset (the update too, which the plan does not "
+                        "count)",
+           "step_ms": "the second step, host clock between synchronizes",
+           "device_busy_ms": "a third step under torch.profiler: the sum "
+                             "of its kernels' device time",
+           "host_ms": f"mean of three steps at batch 1 x {HOST_SEQ} "
+                      "tokens, host clock between synchronizes; "
+                      "host_step_device_busy_ms is the card's work in one "
+                      "such step (profiler)",
+           "plan": "ray_tpu_torch.models.memory_plan.plan_llama, "
+                   "{'data': 1}, moment_dtype_bytes=2",
+           "device_total_gb":
+               torch.cuda.get_device_properties(0).total_memory / 1e9,
+           "modes": modes, "card": smi}
+    emit(row)
+    peaks = {k: v["peak_fwd_bwd_gb"] for k, v in modes.items()}
+    for k, v in modes.items():
+        check(math.isfinite(v["loss"]),
+              f"memory, remat={k}: loss {v['loss']}")
+        check(0.8 <= v["ratio"] <= 1.25,
+              f"memory, remat={k}: forward and backward peak "
+              f"{v['peak_fwd_bwd_gb']} GB is {v['ratio']} x the plan's "
+              f"{v['plan_gb']} GB (allowed 0.8-1.25)")
+    check(peaks["False"] > peaks["mlp"] > peaks["gate"] > peaks["True"],
+          f"memory: expected forward and backward peaks False > mlp > "
+          f"gate > True, got {peaks}")
+    steps = {k: v["peak_step_gb"] for k, v in modes.items()}
+    check(max(steps[k] for k in ("True", "gate", "mlp")) < steps["False"],
+          f"memory: a checkpointing mode's whole step peaks at or above "
+          f"remat=False's: {steps}")
+    del state, batch, small
     torch.cuda.empty_cache()
     return row
 
@@ -947,6 +1128,7 @@ def main(argv=None) -> int:
     logits_check(torch, args.seed)
     grads_check(torch, args.seed)
     trained = train(torch, args.seed, smi)
+    memory(torch, args.seed, smi)
 
     def entry(name, source, replaces, row, *others):
         by_path = {"serve": served["launches"][name],

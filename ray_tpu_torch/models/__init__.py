@@ -1,6 +1,6 @@
 """Models in PyTorch. Counterpart of ``ray_tpu.models``: the Llama-3
-family (``llama``: inference, the KV-cache path and the loss) and the
-train step (``training``)."""
+family (``llama``: inference, the KV-cache path, the loss and remat), the
+train step (``training``) and the memory plan (``memory_plan``)."""
 
 from ray_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
@@ -12,6 +12,7 @@ from ray_tpu_torch.models.llama import (  # noqa: F401
     loss_fn,
     params_from_jax,
 )
+from ray_tpu_torch.models.memory_plan import plan_llama  # noqa: F401
 from ray_tpu_torch.models.training import (  # noqa: F401
     TrainState,
     init_train_state,

@@ -10,8 +10,10 @@ routes it) and every norm through the RMSNorm kernel on CUDA tensors; the projec
 are plain matrix products (``torch.matmul``), as the JAX package leaves
 them to XLA. :func:`forward_hidden`, :func:`forward` and :func:`loss_fn`
 are differentiable (the training path); :func:`forward_with_cache` is
-the serving path, forward only. Remat (activation checkpointing) and
-sharding are not ported yet.
+the serving path, forward only. ``cfg.remat`` checkpoints each layer of
+the differentiable forward as JAX's ``jax.checkpoint`` with
+``save_only_these_names`` does (:func:`forward_hidden`). Sharding is not
+ported yet.
 
 Entry points (:func:`init_params`, :func:`params_from_jax`,
 :func:`init_kv_cache`) run on ``cuda`` unless the caller passes
@@ -27,6 +29,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops.attention import (attention_reference,
                                          flash_attention, flash_attention_fwd)
@@ -67,9 +72,8 @@ class LlamaConfig:
     # (serving) path always takes the flash forward, as in JAX.
     attention: str = "auto"
     # False | True | "gate" | "mlp", validated as in JAX by
-    # forward_hidden. Only False is ported: the others raise when a
-    # gradient is recorded (checkpointing changes memory, never the
-    # result).
+    # forward_hidden: what each layer saves across its checkpoint
+    # (_REMAT_SAVES). It changes memory and time, never the result.
     remat: Any = True
     # loss_fn fuses the output projection into the CE loss (the logits
     # are never materialised) unless this is False.
@@ -254,46 +258,111 @@ def _qkv(cfg: LlamaConfig, h, lp):
     return q, k, v
 
 
-def _attn_out_and_mlp(cfg: LlamaConfig, x, attn, lp):
+def _attn_out_and_mlp(cfg: LlamaConfig, x, attn, lp, saved=()):
+    """The attention output's projection and the MLP. A hidden tensor
+    whose name is in ``saved`` ("ffn_gate", "ffn_up") comes from its own
+    op (:func:`ffn_gate`, :func:`ffn_up`), so that a checkpoint can save
+    it; otherwise from plain ops."""
     b, t, _ = x.shape
     x = x + attn.reshape(b, t, -1).to(cfg.dtype) \
         @ lp["wo"].reshape(-1, cfg.dim)
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(h2 @ lp["w1"])
-    up = h2 @ lp["w3"]
+    gate = ffn_gate(h2, lp["w1"]) if "ffn_gate" in saved \
+        else F.silu(h2 @ lp["w1"])
+    up = ffn_up(h2, lp["w3"]) if "ffn_up" in saved else h2 @ lp["w3"]
     return x + (gate * up) @ lp["w2"]
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Remat: the tensors a checkpointed layer saves
 # ---------------------------------------------------------------------------
 
 
-_REMAT_QUEUE = ("remat={!r} (activation checkpointing) is not ported yet: "
-                "ROADMAP.md Queue 1; use remat=False")
+@torch.library.custom_op("ray_tpu_torch::ffn_gate", mutates_args=())
+def ffn_gate(h2: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """``silu(h2 @ w1)``, the tensor JAX names ``ffn_gate``, as one op.
+    Its backward recomputes ``h2 @ w1`` for silu's derivative, as JAX's
+    remat does when it saves only the named tensor."""
+    return F.silu(h2 @ w1)
 
 
-def _check_remat(cfg: LlamaConfig, params) -> None:
-    """``cfg.remat`` as JAX validates it (llama.py:312-316). A valid
-    non-False mode raises NotImplementedError when autograd records the
-    forward (grad mode on, a parameter that requires grad); otherwise
-    nothing is saved for a backward, so there is nothing to checkpoint
-    and the forward is the same."""
+@ffn_gate.register_fake
+def _(h2, w1):
+    return h2.new_empty((*h2.shape[:-1], w1.shape[-1]))
+
+
+def _ffn_gate_backward(ctx, g):
+    h2, w1 = ctx.saved_tensors
+    da = torch.ops.aten.silu_backward(g, h2 @ w1)
+    return _matmul_grads(h2, w1, da)
+
+
+@torch.library.custom_op("ray_tpu_torch::ffn_up", mutates_args=())
+def ffn_up(h2: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """``h2 @ w3``, the tensor JAX names ``ffn_up``, as one op."""
+    return h2 @ w3
+
+
+@ffn_up.register_fake
+def _(h2, w3):
+    return h2.new_empty((*h2.shape[:-1], w3.shape[-1]))
+
+
+def _matmul_grads(h, w, g):
+    """Gradients of ``h [..., D] @ w [D, F]`` for the cotangent ``g [...,
+    F]``, as autograd takes them for ``torch.matmul``."""
+    dh = g @ w.T
+    dw = h.reshape(-1, h.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+    return dh, dw
+
+
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+ffn_gate.register_autograd(_ffn_gate_backward, setup_context=_save_inputs)
+ffn_up.register_autograd(
+    lambda ctx, g: _matmul_grads(*ctx.saved_tensors, g),
+    setup_context=_save_inputs)
+
+
+# What each remat mode saves across a layer's checkpoint, as JAX's
+# save_only_these_names (ray_tpu/models/llama.py:315-324), by the name of
+# the op in ray_tpu_torch whose outputs are saved: True the flash
+# forward's o and lse ("flash_out" and "flash_lse" in JAX, both outputs
+# of flash_fwd), "gate" also "ffn_gate", "mlp" also "ffn_up". Everything
+# else is recomputed in the backward.
+_REMAT_SAVES = {True: ("flash_fwd",), "gate": ("flash_fwd", "ffn_gate"),
+                "mlp": ("flash_fwd", "ffn_gate", "ffn_up")}
+
+
+def _remat_saves(cfg: LlamaConfig, params) -> Optional[tuple]:
+    """``cfg.remat`` as JAX validates it (llama.py:312-316), then what a
+    layer saves across its checkpoint (:data:`_REMAT_SAVES`), or None
+    when nothing is checkpointed: ``remat=False``, or no gradient is
+    recorded (grad mode off, no parameter that requires grad), where
+    nothing is saved for a backward and the forward is the same."""
     if not cfg.remat:
-        return
+        return None
     if cfg.remat not in (True, "mlp", "gate"):
         raise ValueError(
             f"remat={cfg.remat!r}: expected False, True, 'gate', or 'mlp' "
             "(a typo here would silently train with attn-only "
             "checkpointing)")
     if torch.is_grad_enabled() and _requires_grad(params):
-        raise NotImplementedError(_REMAT_QUEUE.format(cfg.remat))
+        return _REMAT_SAVES[cfg.remat]
+    return None
 
 
 def _requires_grad(tree) -> bool:
     if isinstance(tree, dict):
         return any(_requires_grad(v) for v in tree.values())
     return tree.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
 
 
 _PARALLEL_QUEUE = ("attention={!r} (context-parallel attention) needs "
@@ -325,13 +394,29 @@ def _attention_fn(cfg: LlamaConfig, device: torch.device):
                      "'reference', 'ring' or 'ulysses'")
 
 
+def _layer_fn(cfg: LlamaConfig, attention, cos, sin, x, lp, saved=()):
+    """One transformer block of the differentiable forward. x: [B, S, D]."""
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, h, lp)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return _attn_out_and_mlp(cfg, x, attention(q, k, v), lp, saved)
+
+
 def forward_hidden(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
                    positions: Optional[torch.Tensor] = None):
     """tokens: ``[B, S]`` int → final-norm hidden states ``[B, S, D]``
     (``cfg.dtype``). Causal attention (top-left mask) as ``cfg.attention``
     routes it (:func:`_attention_fn`). Differentiable with respect to
-    ``params``."""
-    _check_remat(cfg, params)
+    ``params``.
+
+    With ``cfg.remat`` set and a gradient recorded, each layer runs under
+    non-reentrant ``torch.utils.checkpoint`` with a selective policy: it
+    keeps its input and the outputs of the ops that :data:`_REMAT_SAVES`
+    names for the mode, and the backward recomputes the rest of the layer
+    (the norms, the projections, RoPE, the MLP's other products) as far
+    as it needs (the checkpoint's early stop)."""
+    saved = _remat_saves(cfg, params)
     device = tokens.device
     attention = _attention_fn(cfg, device)
     if positions is not None:
@@ -341,12 +426,21 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
         cos, sin = _rope_table(cfg.head_dim, cfg.max_seq_len,
                                cfg.rope_theta, device)
     x = params["embed"][tokens].to(cfg.dtype)
+    body = functools.partial(_layer_fn, cfg, attention, cos, sin)
+    if saved is not None:
+        # The policy saves the outputs of these ops, and recomputes every
+        # other op.
+        context_fn = functools.partial(
+            create_selective_checkpoint_contexts,
+            [getattr(torch.ops.ray_tpu_torch, name).default
+             for name in saved])
     for lp in _layers(params):
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, h, lp)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        x = _attn_out_and_mlp(cfg, x, attention(q, k, v), lp)
+        if saved is None:
+            x = body(x, lp)
+        else:
+            # Nothing in a layer draws random numbers: no RNG state to keep.
+            x = checkpoint(body, x, lp, saved, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=context_fn)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -14,7 +14,6 @@ for CUDA tensors and runs its plain version for CPU tensors:
 """
 
 from ray_tpu_torch.ops.attention import (  # noqa: F401
-    FlashAttention,
     attention_reference,
     cached_attention_reference,
     flash_attention,

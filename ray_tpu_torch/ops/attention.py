@@ -15,9 +15,9 @@ Counterpart of ``ray_tpu/ops/attention.py`` and of
 - :func:`flash_attention_bwd` runs the two kernels of ``csrc/flash_bwd.cu``
   (the ports of ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``) on
   CUDA tensors and :func:`flash_attention_bwd_reference` on CPU tensors.
-- :func:`flash_attention` is the differentiable form
-  (:class:`FlashAttention`, the counterpart of the ``_flash`` custom_vjp):
-  the forward kernel, then the backward kernels under autograd.
+- :func:`flash_attention` is the differentiable form (the custom op
+  ``ray_tpu_torch::flash_fwd`` with its autograd, the counterpart of the
+  ``_flash`` custom_vjp): the forward kernel, then the backward kernels.
 
 Layout at the public functions is ``[batch, seq, heads, head_dim]``, as
 in ``ray_tpu.ops.attention.flash_attention``; K/V may have fewer heads
@@ -196,7 +196,7 @@ def flash_attention_fwd(
 
 def _flash_fwd(q, k, v, causal: bool, sm_scale: float, q_offset):
     """The forward kernel's launch (or its plain version on the CPU),
-    shared by :func:`flash_attention_fwd` and :class:`FlashAttention`."""
+    shared by :func:`flash_attention_fwd` and :func:`flash_attention`."""
     if q.device.type == "cpu":
         others = (k, v) if q_offset is None else (k, v, q_offset)
         if any(t.device.type != "cpu" for t in others):
@@ -383,26 +383,45 @@ flash_attention_bwd.dq_launches = 0
 flash_attention_bwd.dkv_launches = 0
 
 
-class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention: the forward kernel, which also
-    gives the ``lse`` the backward needs, and :func:`flash_attention_bwd`
-    as the backward. Counterpart of the ``_flash`` custom_vjp, which saves
-    ``(q, k, v, o, lse)`` the same way."""
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, sm_scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable forward as one dispatcher op, so that a
+    selective-checkpoint policy can save its ``(o, lse)`` across a
+    checkpoint instead of rerunning it (``models/llama.py``'s remat): the
+    counterpart of ``_flash_vjp_fwd``, whose ``o`` and ``lse`` are named
+    ``flash_out`` and ``flash_lse``. Kernel on CUDA, plain version on the
+    CPU, as :func:`_flash_fwd` decides."""
+    return _flash_fwd(q, k, v, causal, sm_scale, None)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        o, lse = _flash_fwd(q, k, v, causal, sm_scale, None)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
-                                         causal=ctx.causal,
-                                         sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, sm_scale):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, causal, sm_scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, do, _dlse):
+    """:func:`flash_attention_bwd` from the saved ``(q, k, v, o, lse)``,
+    as ``_flash_vjp_bwd``; lse is not differentiable."""
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                                     sm_scale=ctx.sm_scale)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward,
+                                setup_context=_flash_setup_context)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -410,8 +429,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention over ``[B, S, H, D]`` tensors (K/V may have fewer
     heads), differentiable: the counterpart of
-    ``ray_tpu.ops.attention.flash_attention``. Returns ``o`` in q's
-    dtype."""
+    ``ray_tpu.ops.attention.flash_attention``. The forward kernel saves
+    ``(q, k, v, o, lse)`` for the backward kernels, as the ``_flash``
+    custom_vjp does. Returns ``o`` in q's dtype."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    return FlashAttention.apply(q, k, v, causal, sm_scale)
+    o, _ = _flash_fwd_op(q, k, v, bool(causal), float(sm_scale))
+    return o

@@ -38,9 +38,11 @@ def test_fresh_interpreter_loads_no_jax_and_no_ray_tpu():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
-    assert int(lines["MODULES"]) >= 12
+    assert int(lines["MODULES"]) >= 13
     assert {"ray_tpu_torch.ops.cross_entropy",
-            "ray_tpu_torch.models.training"} <= set(lines["NAMES"].split(","))
+            "ray_tpu_torch.models.training",
+            "ray_tpu_torch.models.memory_plan"} <= set(
+        lines["NAMES"].split(","))
     assert lines["BAD"] == "[]"
 
 

@@ -255,7 +255,7 @@ def test_flash_bwd_reference_matches_jax_pallas_bwd(shape, causal):
 
 @pytest.mark.parametrize("shape,causal", _BWD_CASES)
 def test_flash_attention_autograd_matches_jax_vjp(shape, causal):
-    """FlashAttention through autograd (the forward kernel's plain
+    """flash_attention through autograd (the forward kernel's plain
     version, then the backward's) against jax.vjp of the JAX
     flash_attention run through its Pallas kernels in interpret mode.
     Same f32 arithmetic, sums in another order (F32_TOL)."""

@@ -7,6 +7,7 @@ port's takes the plain versions of its flash kernels. Tolerances are
 stated beside each check.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -15,10 +16,12 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import llama as jllama
 from ray_tpu.models import training as jtraining
 from ray_tpu_torch.models import llama, training
+from ray_tpu_torch.ops import attention as attn_ops
 
 
 def _named_leaves(tree, prefix=""):
@@ -101,9 +104,10 @@ def test_loss_fn_value_and_grads_match_jax(tied, fused, mask, positions):
 
 def test_remat_modes_are_validated():
     """remat as JAX validates it: a bad value raises ValueError; the
-    checkpointing modes are not ported and raise when autograd records
-    the forward; without a parameter that requires grad, or under
-    no_grad, nothing is saved to checkpoint and the forward runs."""
+    checkpointing modes run when autograd records the forward (their
+    values are held against JAX in test_remat_loss_and_grads_match_jax);
+    without a parameter that requires grad, or under no_grad, nothing is
+    saved to checkpoint and the forward runs as it is."""
     _, _, cfg, params = _model(False, True)
     _, batch = _batch(1, 1, 8, cfg.vocab_size)
     with pytest.raises(ValueError, match="remat"):
@@ -112,13 +116,144 @@ def test_remat_modes_are_validated():
                             dataclasses.replace(cfg, remat="gate"))
     assert torch.isfinite(loss)
     params["final_norm"].requires_grad_()
+    params["layers"]["w1"].requires_grad_()
     for mode in (True, "gate", "mlp"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            llama.loss_fn(params, batch, dataclasses.replace(cfg, remat=mode))
+        loss, _ = llama.loss_fn(params, batch,
+                                dataclasses.replace(cfg, remat=mode))
+        grads = torch.autograd.grad(
+            loss, [params["final_norm"], params["layers"]["w1"]])
+        assert torch.isfinite(loss)
+        assert all(bool(torch.isfinite(g).all()) and g.abs().sum() > 0
+                   for g in grads)
     with torch.no_grad():
         loss, _ = llama.loss_fn(params, batch,
                                 dataclasses.replace(cfg, remat=True))
     assert torch.isfinite(loss)
+
+
+_REMAT_MODES = [True, "gate", "mlp"]
+
+
+@pytest.mark.parametrize("attention", ["flash", "reference"])
+@pytest.mark.parametrize("remat", _REMAT_MODES, ids=str)
+def test_remat_loss_and_grads_match_jax(remat, attention):
+    """loss_fn's value and the gradient of every parameter leaf with each
+    layer checkpointed, against the port at remat=False (the same ops in
+    the same order: the recomputed values equal the first ones) and
+    against jax.value_and_grad of the JAX loss_fn at the same remat mode.
+    JAX on the CPU takes its reference attention, so its flash names are
+    absent there: this checks values, not what is saved. The port runs
+    its flash op (the kernels' plain versions) or its plain attention.
+    f32 on both sides: each leaf is held to 1e-5 of its own largest
+    value, as in test_loss_fn_value_and_grads_match_jax."""
+    jcfg, jparams, cfg, params = _model(False, True)
+    jcfg = dataclasses.replace(jcfg, remat=remat)
+    cfg = dataclasses.replace(cfg, attention=attention)
+    jbatch, batch = _batch(3, 2, 16, cfg.vocab_size, mask=True)
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jllama.loss_fn(p, jbatch, jcfg), has_aux=True)(jparams)
+    leaves = _named_leaves(params)
+    for _, t in leaves:
+        t.requires_grad_()
+
+    def loss_and_grads(mode):
+        loss, _ = llama.loss_fn(params, batch,
+                                dataclasses.replace(cfg, remat=mode))
+        return loss, torch.autograd.grad(loss, [t for _, t in leaves])
+
+    loss, grads = loss_and_grads(remat)
+    loss0, grads0 = loss_and_grads(False)
+    np.testing.assert_allclose(loss.item(), loss0.item(), rtol=1e-6)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    ref = _jax_named(jgrads)
+    for (name, _), g, g0 in zip(leaves, grads, grads0):
+        r = ref[name]
+        for label, want in (("remat=False", g0.numpy()), ("JAX", r)):
+            np.testing.assert_allclose(g.numpy(), want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(r).max(),
+                                       err_msg=f"{name} against {label}")
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ops that run under it, by name; a matrix product whose
+    second operand is one of ``weights`` (untransposed) is counted as
+    ``"@" + its name``: a forward projection, not a gradient product."""
+
+    def __init__(self, weights):
+        super().__init__()
+        self.weights = weights
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        if func is torch.ops.aten.mm.default and args[1].is_contiguous():
+            name = self.weights.get(args[1].data_ptr(), name)
+        self.counts[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("remat", _REMAT_MODES, ids=str)
+def test_remat_saves_what_the_mode_names(remat, monkeypatch):
+    """What a checkpointed layer saves is what the mode names, as JAX's
+    save_only_these_names: the flash forward's (o, lse) in every mode,
+    ffn_gate under "gate" and "mlp", ffn_up under "mlp". Counted over
+    forward and backward: the flash forward's plain version and the
+    saved ops run once per layer, in the forward only; each layer's
+    selective-checkpoint policy saves these ops and no other (the list
+    form of create_selective_checkpoint_contexts recomputes every op not
+    listed); the backward reruns the norms (rsqrt), the q,
+    k, v and wo projections and the MLP products the mode does not
+    save, up to the last saved value (early stop: the w2 product is not
+    rerun). w1's product runs in the backward in every mode: under
+    "gate" and "mlp" for silu's derivative inside ffn_gate's backward,
+    as in JAX, whose named silu output leaves its input unsaved."""
+    _, _, cfg, params = _model(False, True)
+    cfg = dataclasses.replace(cfg, attention="flash", remat=remat)
+    n = cfg.n_layers
+    _, batch = _batch(4, 2, 16, cfg.vocab_size)
+    leaves = [t.requires_grad_() for _, t in _named_leaves(params)]
+    weights = {params["layers"][name][i].data_ptr(): "@" + name
+               for name in ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+               for i in range(n)}
+    plain = collections.Counter()
+    phase = ["forward"]
+    fwd_reference = attn_ops.flash_attention_fwd_reference
+
+    def counted(*args, **kwargs):
+        plain[phase[0]] += 1
+        return fwd_reference(*args, **kwargs)
+
+    monkeypatch.setattr(attn_ops, "flash_attention_fwd_reference", counted)
+    policies = []
+    contexts = llama.create_selective_checkpoint_contexts
+
+    def recording(ops_to_save, *args, **kwargs):
+        policies.append(sorted(str(op) for op in ops_to_save))
+        return contexts(ops_to_save, *args, **kwargs)
+
+    monkeypatch.setattr(llama, "create_selective_checkpoint_contexts",
+                        recording)
+    fwd, bwd = _OpCount(weights), _OpCount(weights)
+    with fwd:
+        loss, _ = llama.loss_fn(params, batch, cfg)
+    phase[0] = "backward"
+    with bwd:
+        torch.autograd.grad(loss, leaves)
+
+    saved = {"ray_tpu_torch.flash_fwd.default"}
+    if remat in ("gate", "mlp"):
+        saved.add("ray_tpu_torch.ffn_gate.default")
+    if remat == "mlp":
+        saved.add("ray_tpu_torch.ffn_up.default")
+    assert plain == {"forward": n}
+    # One policy per layer, each saving the outputs of these ops only.
+    assert policies == [sorted(saved)] * n
+    for op in saved:
+        assert (fwd.counts[op], bwd.counts[op]) == (n, 0), op
+    rerun = {"aten.rsqrt.default": 2 * n, "@wq": n, "@wk": n, "@wv": n,
+             "@wo": n, "@w1": n, "@w3": 0 if remat == "mlp" else n,
+             "@w2": 0, "aten.silu.default": n if remat is True else 0}
+    assert {k: bwd.counts[k] for k in rerun} == rerun
 
 
 @pytest.mark.parametrize("attention,error,match", [
