@@ -21,21 +21,42 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              head_dim 64 and 128, causal and not, ragged Sq and Sk, the
              8-row decode tile) and the bf16 tensor-core kernels' tile
              edges (MHA, a group of 8, Sq or Sk one past a tile, a short
-             block at the end of a full cache).
+             block at the end of a full cache), and a prefix-cache hit's
+             tail prefills at offset 1024 (4 rows, 512 rows).
 5. serve   — LLMDeployment on Llama-3.2-1B (full width and depth, random
-             weights from --seed), answering concurrent requests; checks
-             every answer and that the main path launched each kernel
-             the expected number of times; prints tokens/s, TTFT p50 and
-             the decode step time.
-6. logits  — one prompt's prefill and 4 decode steps of the 1B model cut
+             weights from --seed, the prefix cache on), answering
+             concurrent requests; checks every answer and that the main
+             path launched each kernel the expected number of times;
+             prints tokens/s, TTFT p50, the decode step time, the
+             cache's stats and its host ms.
+6. prefix  — the prefix cache at full width and depth: one 1024-token
+             head shared by 12 requests (the primer alone, then 11 at
+             once; 4-token and 40-300-token tails), on three fresh
+             engines: the cache off, on, and on with room for 96 blocks
+             (evictions). Checks the hits (>= 11 x 64), evictions,
+             launches per forward, that a copy-in puts the stored bytes
+             in the slot exactly, that a copy-in plus the tail's prefill
+             gives the logits of the same kernels without the cache bit
+             for bit and a full prefill's within twice the measured
+             spread of one rounding flip, that planted faults break the
+             bit-exact check, and greedy tokens equal to the cache-off
+             leg's (or first diverging where the top-2 margin is under
+             twice that limit); prints TTFT p50, tokens/s and the
+             cache's host ms per leg.
+7. models  — one LLMDeployment holding two 1B weight sets: requests
+             alternate between them; each reply must equal a one-model
+             deployment's, a model must get no hit from the other's
+             blocks, and each alternation must swap once; prints the
+             swap ms.
+8. logits  — one prompt's prefill and 4 decode steps of the 1B model cut
              to 2 layers, on the card (bf16, kernels) against the CPU
              (f32, plain versions).
-7. grads   — loss_fn and the gradient of every parameter of the 1B model
+9. grads   — loss_fn and the gradient of every parameter of the 1B model
              cut to 2 layers, on the card (bf16, kernels) against the CPU
              (f32, plain versions), each leaf held to its own limit; and
              the same on the card with remat="gate" against remat=False
              on the card, to 1e-6 of each leaf (the same bf16 ops).
-8. train   — three AdamW steps of Llama-3.2-1B at full width and depth at
+10. train  — three AdamW steps of Llama-3.2-1B at full width and depth at
              bench.py's configuration (remat="gate", batch 4 x 2048
              tokens, bf16 moments, fused CE; one fixed random batch)
              through make_train_step; checks finite, falling loss and the
@@ -43,7 +64,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              per layer: it is saved across the checkpoint, not rerun);
              prints step time, tokens/s, peak memory, and a profiled
              fourth step's top kernels.
-9. memory  — at each of remat=False, True, "gate" and "mlp": the peak
+11. memory — at each of remat=False, True, "gate" and "mlp": the peak
              memory of the forward and backward alone, then of two whole
              steps, each from a fresh reset, beside plan_llama's
              prediction and their ratio; the second step's time and a
@@ -54,7 +75,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              0.8-1.25 of the plan, and every checkpointing mode's
              whole-step peak below remat=False's.
 
-Then the kernels line and, last, ``{"ok": true, "device": {...}}``. Any
+Then each phase's wall seconds, the kernels line and, last, ``{"ok":
+true, "device": {...}}``. Any
 failed check exits non-zero before the last line; with no CUDA device
 the script exits non-zero and prints no result.
 """
@@ -62,6 +84,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -350,6 +373,12 @@ def flash_checks(torch, seed, time_ms):
                      bf16, d=128, slot_of=8))
     rows.append(case("head_dim 128 non-causal Sq 200 Sk 129", 1, 200, 129,
                      None, False, bf16, d=128))
+    # A prefix-cache hit's tail prefill after a 1024-token head: a 4-token
+    # tail on the 8-row tile (more than one row at an offset), a 300-token
+    # tail's bucket on the tensor cores.
+    for bucket in (4, 512):
+        rows.append(case(f"prefix tail bucket {bucket} offset 1024", 1,
+                         bucket, 2048, [1024], True, bf16, slot_of=8))
     return rows
 
 
@@ -529,6 +558,78 @@ def rms_checks(torch, seed, time_ms):
     return rows
 
 
+# -- serving helpers: launch counts, the prefix cache's host time ------------
+
+
+PREFIX_METHODS = ("_prefix_copy_in", "_prefix_admit")
+
+
+@contextlib.contextmanager
+def timed_calls(cls, names):
+    """While the block runs, record the host milliseconds of each call of
+    the methods ``names`` of ``cls`` (for the engine's copies: the time
+    to enqueue them, not the card's time to run them). Yields ``{name:
+    [ms, ...]}``; the class's own methods are put back on exit, and no
+    instance is touched."""
+    spent = {name: [] for name in names}
+    saved = {name: cls.__dict__[name] for name in names}
+    for name in names:
+        def timed(*args, _fn=saved[name], _out=spent[name], **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                _out.append((time.perf_counter() - t) * 1e3)
+        setattr(cls, name, timed)
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def host_summary(spent):
+    return {name: {"calls": len(ms), "total_ms": sum(ms),
+                   "max_ms": max(ms, default=0.0),
+                   "median_ms": statistics.median(ms) if ms else 0.0}
+            for name, ms in spent.items()}
+
+
+def zero_counts():
+    from ray_tpu_torch.ops.attention import (flash_attention_bwd,
+                                             flash_attention_fwd)
+    from ray_tpu_torch.ops.norms import rms_norm
+
+    flash_attention_fwd.launches = rms_norm.launches = 0
+    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
+
+
+def read_counts():
+    from ray_tpu_torch.ops.attention import (flash_attention_bwd,
+                                             flash_attention_fwd)
+    from ray_tpu_torch.ops.norms import rms_norm
+
+    return {"flash_fwd": flash_attention_fwd.launches,
+            "rms_norm": rms_norm.launches,
+            "flash_bwd_dq": flash_attention_bwd.dq_launches,
+            "flash_bwd_dkv": flash_attention_bwd.dkv_launches}
+
+
+def check_launches(label, cfg, launches, m0, m1):
+    """Each forward of the serving path launches the flash forward once
+    per layer and rms_norm twice per layer and once at the end; nothing
+    launches a backward kernel."""
+    forwards = (m1["prefills"] - m0["prefills"]) \
+        + (m1["decode_forwards"] - m0["decode_forwards"])
+    expected = {"flash_fwd": cfg.n_layers * forwards,
+                "rms_norm": (2 * cfg.n_layers + 1) * forwards,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    check(forwards > 0 and launches == expected,
+          f"{label}: kernel launches {launches}, expected {expected} for "
+          f"{forwards} forwards")
+    return forwards
+
+
 # -- phase 5: serving ---------------------------------------------------------
 
 
@@ -575,10 +676,8 @@ def decode_profile(torch, engine, last, ctx, temps, topks, reps=3):
 
 def serve(torch, seed, smi):
     from ray_tpu_torch.models.llama import LlamaConfig, init_params
-    from ray_tpu_torch.ops.attention import (flash_attention_bwd,
-                                             flash_attention_fwd)
-    from ray_tpu_torch.ops.norms import rms_norm
-    from ray_tpu_torch.serve.llm import LLMDeployment, SamplingParams
+    from ray_tpu_torch.serve.llm import (LLMDeployment, LLMEngine,
+                                         SamplingParams)
 
     cfg = LlamaConfig.llama3_1b()
     slots, max_seq, max_tokens, n_req = 8, 2048, 32, 12
@@ -614,36 +713,25 @@ def serve(torch, seed, smi):
     threads = [threading.Thread(target=run, args=(i,)) for i in range(n_req)]
     # The main path's run: kernel counts from 0 just before, read just
     # after.
-    flash_attention_fwd.launches = 0
-    rms_norm.launches = 0
-    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
-    m0 = engine.metrics()
-    t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-    wall = time.perf_counter() - t0
-    launches = {"flash_fwd": flash_attention_fwd.launches,
-                "rms_norm": rms_norm.launches,
-                "flash_bwd_dq": flash_attention_bwd.dq_launches,
-                "flash_bwd_dkv": flash_attention_bwd.dkv_launches}
-    m1 = engine.metrics()
+    with timed_calls(LLMEngine, PREFIX_METHODS) as host_ms:
+        zero_counts()
+        m0 = engine.metrics()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        m1 = engine.metrics()
     check(not any(t.is_alive() for t in threads), "requests hung")
     check(not errors, "; ".join(errors))
-    forwards = (m1["prefills"] - m0["prefills"]) \
-        + (m1["decode_forwards"] - m0["decode_forwards"])
     for i, r in enumerate(results):
         toks = r["tokens"]
         check(len(toks) == max_tokens, f"request {i}: {len(toks)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in toks),
               f"request {i}: token outside the vocabulary")
-    expected = {"flash_fwd": cfg.n_layers * forwards,
-                "rms_norm": (2 * cfg.n_layers + 1) * forwards,
-                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    check(launches == expected,
-          f"kernel launches {launches}, expected {expected} for "
-          f"{forwards} forwards")
+    forwards = check_launches("serve", cfg, launches, m0, m1)
     engine.stop()
 
     # Decode step time: all 8 slots at 512 tokens of context.
@@ -679,6 +767,8 @@ def serve(torch, seed, smi):
            "forwards": forwards, "launches": launches,
            "launches_per_forward": {"flash_fwd": cfg.n_layers,
                                     "rms_norm": 2 * cfg.n_layers + 1},
+           "kv_cache": m1["kv_cache"],
+           "prefix_host_ms": host_summary(host_ms),
            "card": smi}
     emit(row)
     del dep, engine
@@ -686,7 +776,444 @@ def serve(torch, seed, smi):
     return row
 
 
-# -- phase 6: end-to-end logits against the CPU -------------------------------
+# -- phase 6: the prefix cache ------------------------------------------------
+
+
+PREFIX_HEAD = 1024        # the shared head: 64 blocks of 16 tokens
+PREFIX_SMALL_BYTES = 48 << 20   # 96 blocks of 512 KiB: the head + 32
+
+# A copy-in plus the tail's prefill is held to two references, both
+# bf16 on the card:
+# - The same kernels without the cache: the primer (whose admission
+#   stored the head's blocks) prefilled whole in another slot, which
+#   must give the stored bits again, then the same tail from the same
+#   offset. Same kernels, same inputs: the logits must be equal bit for
+#   bit, so the cache adds no error at all.
+# - A full prefill of the whole prompt. Its tail rows run in a 2048-row
+#   bucket, so other kernels compute them (a tail of <= 8 rows runs the
+#   8-row attention tile at its offset, a full prompt the tensor-core
+#   tile), which sum in another order and may round a few activations
+#   the other way. The random-weight model spreads any one such flip
+#   across the logits. The run measures that spread (`nudge`: one element
+#   of the first token's embedding one bf16 ulp larger, the full prefill
+#   again) and allows PREFIX_NUDGES times it.
+# Planted faults show that the checks can fail: a stale row (block 1's
+# payload replaced by block 0's) and a wrong start (the tail prefilled
+# one block early) must each break the bit-exact check and exceed the
+# limit. (A copy-in with its blocks rotated would not: the head's K/V
+# carry their positions' rotary phases, and attention over a permuted set
+# of keys is the same sum. The transport check catches that one.)
+PREFIX_NUDGES = 2
+
+
+def prefix_prompts(cfg, seed):
+    """The shared-head traffic of ``benchmarks/llm_bench.py`` at full
+    width: one 1024-token head; the primer and four others end in
+    4-token tails, as there; seven end in seeded tails of 40-300 tokens
+    (a chat turn)."""
+    rng = np.random.default_rng(seed + 5)
+    head = rng.integers(0, cfg.vocab_size, PREFIX_HEAD).tolist()
+    tails = [4] * 5 + [int(n) for n in rng.integers(40, 301, 7)]
+    return [head + rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in tails]
+
+
+def prefix_leg(torch, cfg, params, prompts, max_tokens, **cache):
+    """A fresh engine: the primer alone, then the other requests at once.
+    Returns the row, the tokens of each request and the stopped engine."""
+    from ray_tpu_torch.serve.llm import LLMEngine, SamplingParams
+
+    engine = LLMEngine(cfg, params, max_batch_size=8, max_seq_len=2048,
+                       decode_steps=4, device="cuda", **cache)
+    # Every bucket up to 2048: the primer (1028 tokens) and, with the
+    # cache off, every prompt prefill at 2048.
+    engine.warmup()
+    results = [None] * len(prompts)
+    errors = []
+
+    def run(i):
+        try:
+            t = time.perf_counter()
+            it = engine.generate(prompts[i], SamplingParams(
+                max_tokens=max_tokens), stream=True)
+            toks = [next(it)]
+            ttft = time.perf_counter() - t
+            toks += list(it)
+            results[i] = {"tokens": toks, "ttft_s": ttft,
+                          "latency_s": time.perf_counter() - t}
+        except Exception as e:  # reported below; the run then fails
+            errors.append(f"request {i}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(1, len(prompts))]
+    with timed_calls(LLMEngine, PREFIX_METHODS) as host_ms:
+        zero_counts()
+        m0 = engine.metrics()
+        run(0)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        m1 = engine.metrics()
+    engine.stop()
+    check(not any(t.is_alive() for t in threads), "prefix: requests hung")
+    check(not errors, "; ".join(errors))
+    for i, r in enumerate(results):
+        check(len(r["tokens"]) == max_tokens
+              and all(0 <= t < cfg.vocab_size for t in r["tokens"]),
+              f"prefix: request {i}: tokens {r['tokens']}")
+    forwards = check_launches("prefix", cfg, launches, m0, m1)
+    ttfts = [r["ttft_s"] for r in results[1:]]
+    pc = engine.prefix_cache
+    row = {"prefix_cache_bytes": pc and pc.capacity_bytes,
+           "wall_s": wall,
+           "tokens_per_s": sum(len(r["tokens"]) for r in results[1:]) / wall,
+           "ttft_p50_s": statistics.median(ttfts),
+           "ttft_s": ttfts, "primer_ttft_s": results[0]["ttft_s"],
+           "forwards": forwards, "launches": launches,
+           "kv_cache": m1.get("kv_cache"),
+           "host_ms": host_summary(host_ms)}
+    return row, [r["tokens"] for r in results], engine
+
+
+def copy_in_check(torch, engine, primer, prompt):
+    """On a stopped engine whose cache holds the primer's head: copy the
+    cached head of ``prompt`` into slot 0 and prefill its tail there.
+    The slot's head must equal the stored payloads bit for bit, and the
+    last position's logits must equal those of the same tail prefilled
+    after the primer without the cache (slot 1) bit for bit, and those of
+    a full prefill of ``prompt`` (slot 2) within ``PREFIX_NUDGES`` times
+    the model's spread of one rounding flip (slot 2 again). Planted
+    faults run in slot 3."""
+    import types
+
+    bt = engine.block_tokens
+    m_tok, chain = engine._prefix_copy_in(types.SimpleNamespace(
+        job="check"), 0, prompt)
+    held = engine.prefix_cache.lookup(chain[:m_tok // bt])
+    rows = [engine._kv_store[h.block_id] for h in held]
+    engine.prefix_cache.release(held)
+    payload = engine._kv_arena[rows].to("cuda")  # [m, 2, L, bt, Hkv, D]
+
+    def head_is_payload(slot):
+        same = len(rows) == m_tok // bt
+        for j, name in enumerate(("k", "v")):
+            region = engine.cache[name][:, slot, :m_tok]
+            want = payload[:, j].transpose(0, 1).flatten(1, 2)
+            same = same and torch.equal(region.view(torch.int16),
+                                        want.view(torch.int16))
+        return same
+
+    def prefill(tokens, slot, start):
+        padded = torch.zeros((1, engine._serve_bucket(len(tokens))),
+                             dtype=torch.long)
+        padded[0, :len(tokens)] = torch.tensor(tokens)
+        return engine._prefill(padded.to("cuda"), slot, len(tokens),
+                               start).float()
+
+    tail = prompt[m_tok:]
+    transport = head_is_payload(0)
+    got = prefill(tail, 0, m_tok)
+    prefill(primer, 1, 0)
+    reproduced = head_is_payload(1)
+    same = prefill(tail, 1, m_tok)
+    full = prefill(prompt, 2, 0)
+    # The model's own spread of one flip.
+    embed = engine.params["embed"]
+    row0, kept = prompt[0], embed[prompt[0], 0].clone()
+    embed[row0, 0] = (kept.float() * (1 + 2 ** -7)).to(embed.dtype)
+    try:
+        nudged = prefill(prompt, 2, 0)
+    finally:
+        embed[row0, 0] = kept
+    nudge = (nudged - full).abs().max().item()
+    nudge_rms = (nudged - full).square().mean().sqrt().item()
+    limit = PREFIX_NUDGES * nudge
+    err = (got - full).abs().max().item()
+
+    def over_limit(e):
+        return e / limit if limit else math.inf if e else 0.0
+
+    def planted(fault_rows, start):
+        engine._copy_blocks_in(3, fault_rows)
+        bad = prefill(tail, 3, start)
+        e = (bad - full).abs().max().item()
+        return {"bit_equal": bool(torch.equal(bad, same)),
+                "max_abs_err": e, "over_limit": over_limit(e),
+                "rms_err_over_nudge_rms":
+                    (bad - full).square().mean().sqrt().item() / nudge_rms}
+
+    std = full.std().item()
+    return {"tail": len(tail), "matched": m_tok,
+            "transport_bit_exact": bool(transport),
+            "head_reproduced_without_cache": bool(reproduced),
+            "same_kernels_bit_exact": bool(torch.equal(got, same)),
+            "max_abs_err": err, "ref_std": std,
+            "max_err_over_std": err / std,
+            "nudge_max_abs_err": nudge,
+            "nudge_max_err_over_std": nudge / std,
+            "nudge_rms": nudge_rms,
+            "rms_err_over_nudge_rms":
+                (got - full).square().mean().sqrt().item() / nudge_rms,
+            "limit": limit, "max_err_over_limit": over_limit(err),
+            "argmax_equal": bool(got.argmax() == full.argmax()),
+            "planted": {"stale row": planted(rows[:1] + rows[:1] + rows[2:],
+                                             m_tok),
+                        "wrong start": planted(rows, m_tok - bt)}}
+
+
+def divergence(torch, engine, prompt, off, on):
+    """Where greedy tokens with the cache on first differ from those with
+    it off: the position, and the cache-off top-2 logit margin there and
+    the logits' spread (a full prefill of the prompt and the cache-off
+    tokens before it)."""
+    j = next(i for i, (a, b) in enumerate(zip(off, on)) if a != b)
+    seq = prompt + off[:j]
+    padded = torch.zeros((1, engine._serve_bucket(len(seq))),
+                         dtype=torch.long)
+    padded[0, :len(seq)] = torch.tensor(seq)
+    logits = engine._prefill(padded.to("cuda"), 2, len(seq)).float()
+    top = logits.topk(2)
+    return {"position": j, "off": off[j], "on": on[j],
+            "margin": (top.values[0] - top.values[1]).item(),
+            "std": logits.std().item()}
+
+
+def prefix(torch, seed, smi, time_ms):
+    """Three legs on fresh engines over the same shared-head traffic: the
+    cache off, on, and on with room for 96 blocks, so that blocks are
+    evicted. Checks hits, evictions, launches, transport, logits and
+    greedy tokens; prints TTFT, tokens/s and the cache's host ms."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.llama3_1b()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                         "cuda")
+    prompts = prefix_prompts(cfg, seed)
+    max_tokens, n_later = 32, len(prompts) - 1
+    head_blocks = PREFIX_HEAD // 16
+    legs, tokens, launches, checks = {}, {}, {}, {}
+    timings = run_prefix_legs(torch, cfg, params, prompts, max_tokens, seed,
+                              time_ms, legs, tokens, launches, checks)
+    row = {"phase": "prefix", "model": "llama3_1b", "layers": cfg.n_layers,
+           "slots": 8, "max_seq_len": 2048, "decode_steps": 4,
+           "head_tokens": PREFIX_HEAD,
+           "tails": [len(p) - PREFIX_HEAD for p in prompts],
+           "max_tokens": max_tokens,
+           "traffic": "the primer alone, then the other 11 at once",
+           "legs": legs, "copy_in": checks, "card_ms": timings,
+           "tol": f"copy-in + tail against the same tail without the "
+                  f"cache: bit for bit; against a full prefill: "
+                  f"{PREFIX_NUDGES} x the max |logit change| of one bf16 "
+                  f"ulp in one embedding element (nudge)",
+           "host_ms": "perf_counter around each call of the engine's "
+                      "_prefix_copy_in and _prefix_admit: enqueueing "
+                      "their copies, not the card's time",
+           "card": smi}
+    emit(row)
+    for label, c in checks.items():
+        check(c["matched"] == PREFIX_HEAD and c["transport_bit_exact"]
+              and c["head_reproduced_without_cache"]
+              and c["same_kernels_bit_exact"],
+              f"prefix, copy-in {label}: {c}")
+        check(c["max_err_over_limit"] <= 1 and c["argmax_equal"],
+              f"prefix, copy-in {label}: logits against a full prefill: "
+              f"{c}")
+        for fault, f in c["planted"].items():
+            check(not f["bit_equal"],
+                  f"prefix, copy-in {label}: the planted fault "
+                  f"'{fault}' passes the checks: {f}")
+    # A divergence is allowed only where the cache-off top-2 margin is
+    # under what the two logits may each move by: the limit above, as a
+    # share of the logits' spread, at the larger of the runs' nudges.
+    per_std = PREFIX_NUDGES * max(c["nudge_max_err_over_std"]
+                                  for c in checks.values())
+    for name in ("on", "small"):
+        stats = legs[name]["kv_cache"]
+        check(stats["hits"] >= n_later * head_blocks,
+              f"prefix, {name}: {stats['hits']} hits, expected at least "
+              f"{n_later} x {head_blocks}")
+        for i, d in legs[name]["diverged"].items():
+            check(d["margin"] < 2 * per_std * d["std"],
+                  f"prefix, {name}: request {i} diverges from the cache-off "
+                  f"tokens at a top-2 margin over 2 x {per_std} x std: {d}")
+    check(legs["small"]["kv_cache"]["evictions"] > 0,
+          f"prefix, small: no eviction: {legs['small']['kv_cache']}")
+    return {k: sum(launches[leg][k] for leg in launches)
+            for k in launches["off"]}
+
+
+def run_prefix_legs(torch, cfg, params, prompts, max_tokens, seed, time_ms,
+                    legs, tokens, launches, checks):
+    """The three legs of the prefix phase, filling the dicts given;
+    returns the cache-on engine's ``prefix_card_ms``."""
+    for name, cache in (("off", {"prefix_cache": False}), ("on", {}),
+                        ("small", {"prefix_cache_bytes":
+                                   PREFIX_SMALL_BYTES})):
+        row, tokens[name], engine = prefix_leg(torch, cfg, params, prompts,
+                                               max_tokens, **cache)
+        legs[name] = row
+        launches[name] = row["launches"]
+        if name == "on":
+            # Fresh tails after the head, so that only the head matches:
+            # the 8-row tile (4 tokens) and the tensor-core tile (300),
+            # each at offset 1024.
+            rng = np.random.default_rng(seed + 7)
+            checks.update({f"tail {n}": copy_in_check(
+                torch, engine, prompts[0], prompts[0][:PREFIX_HEAD]
+                + rng.integers(0, cfg.vocab_size, n).tolist())
+                for n in (4, 300)})
+            timings = prefix_card_ms(torch, engine, prompts[0], time_ms)
+        diverged = {}
+        if name != "off":
+            for i, (a, b) in enumerate(zip(tokens["off"], tokens[name])):
+                if a != b:
+                    diverged[i] = divergence(torch, engine, prompts[i], a, b)
+            row["diverged"] = diverged
+        del engine
+        torch.cuda.empty_cache()
+    return timings
+
+
+def prefix_card_ms(torch, engine, primer, time_ms):
+    """What an admission costs the card with a hit and without one, on a
+    stopped engine whose cache holds the primer. The 64-block copy-in and
+    the readback of 64 blocks (into the rows they came from: the same
+    bytes) are timed with CUDA events (L2 cold, the mean of 3). A prefill
+    is hundreds of launches, which the host enqueues more slowly than the
+    card runs them, so events would time the host: each prefill (a 4- and
+    a 300-token tail at offset 1024, a 2048-token bucket) is read by the
+    profiler instead, as its wall time and the card's busy time."""
+    from ray_tpu_torch._private.kv_cache import chain_keys
+
+    held = engine.prefix_cache.lookup(chain_keys(
+        primer[:PREFIX_HEAD], engine.block_tokens, engine._chain_seed))
+    rows = [engine._kv_store[h.block_id] for h in held]
+    engine.prefix_cache.release(held)
+
+    def tokens(seq, bucket):
+        t = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
+        t[0, :len(seq)] = torch.tensor(seq)
+        return t
+
+    def prefill_ms(*args):
+        engine._prefill(*args)
+        p = device_profile(torch, lambda: engine._prefill(*args), 1)
+        return {"wall_ms": p["wall_ms_per_step"],
+                "busy_ms": p["device_busy_ms_per_step"]}
+
+    engine._copy_blocks_in(4, rows)
+    nbytes = len(rows) * engine._block_nbytes
+    copy_in = time_ms(lambda: engine._copy_blocks_in(3, rows), iters=3)
+    readback = time_ms(lambda: engine._read_blocks(
+        4, list(range(len(rows))), rows), iters=3)
+    return {"copy_in_64_blocks_ms": copy_in,
+            "copy_in_gb_per_s": nbytes / copy_in / 1e6,
+            "readback_64_blocks_ms": readback,
+            "readback_gb_per_s": nbytes / readback / 1e6,
+            "prefill_tail_4_offset_1024": prefill_ms(
+                tokens(primer[-4:], 4), 3, 4, PREFIX_HEAD),
+            "prefill_tail_300_offset_1024": prefill_ms(
+                tokens(primer[-4:] * 75, 512), 3, 300, PREFIX_HEAD),
+            "prefill_bucket_2048": prefill_ms(
+                tokens(primer, 2048), 5, len(primer))}
+
+
+# -- phase 7: two models on one engine ----------------------------------------
+
+
+def models(torch, seed, smi):
+    """One LLMDeployment holding two Llama-3.2-1B weight sets (seeds
+    ``seed`` and ``seed + 1``): 6 requests alternate between them one at
+    a time, then one prompt goes to "a" and then to "b". Each reply must
+    equal a one-model deployment's of the same weights, "b" must get no
+    hit from "a"'s blocks, and each alternation must swap once."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.serve.llm import LLMDeployment, LLMEngine
+
+    cfg = LlamaConfig.llama3_1b()
+
+    def loader(s):
+        return lambda: init_params(
+            cfg, torch.Generator("cuda").manual_seed(s), "cuda")
+
+    kw = dict(max_batch_size=8, max_seq_len=2048, decode_steps=4,
+              warmup_max_prompt_len=1024, device="cuda")
+    dep = LLMDeployment(cfg, models={"a": loader(seed),
+                                     "b": loader(seed + 1)}, **kw)
+    rng = np.random.default_rng(seed + 6)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(100, 700, 6)]
+    shared = rng.integers(0, cfg.vocab_size, 512).tolist()
+    sequence = [(p, "ab"[i % 2]) for i, p in enumerate(prompts)] \
+        + [(shared, "a"), (shared, "b")]
+    max_tokens, replies = 32, []
+    with timed_calls(LLMDeployment, ("_ensure_model",)) as ensure_ms, \
+            timed_calls(LLMEngine, ("swap_params",)) as swap_calls:
+        zero_counts()
+        m0 = dep.engine.metrics()
+        for i, (p, name) in enumerate(sequence):
+            if i == len(sequence) - 1:
+                kv0 = dep.engine.metrics()["kv_cache"]
+            replies.append(dep({"prompt_ids": p, "max_tokens": max_tokens,
+                                "model": name})["tokens"])
+        launches = read_counts()
+        m1 = dep.engine.metrics()
+    dep.engine.stop()
+    swaps = len(swap_calls["swap_params"])
+    # The host ms of each request's _ensure_model that swapped: drain,
+    # then swap_params.
+    swap_ms, live = [], dep.default_model
+    for (_, name), ms in zip(sequence, ensure_ms["_ensure_model"]):
+        if name != live:
+            swap_ms.append(ms)
+            live = name
+    forwards = check_launches("models", cfg, launches, m0, m1)
+    kv1 = m1["kv_cache"]
+    cross = {"hits": kv1["hits"] - kv0["hits"],
+             "misses": kv1["misses"] - kv0["misses"]}
+    weights = {name: dep._load_model(name) for name in ("a", "b")}
+    del dep
+    torch.cuda.empty_cache()
+    alone = [None] * len(sequence)
+    for name in ("a", "b"):
+        # Tokens only, nothing timed: no warmup.
+        one = LLMDeployment(cfg, lambda: weights[name], warmup=False, **kw)
+        for i, (p, n) in enumerate(sequence):
+            if n == name:
+                alone[i] = one({"prompt_ids": p,
+                                "max_tokens": max_tokens})["tokens"]
+        one.engine.stop()
+        del one
+        torch.cuda.empty_cache()
+    alternations = sum(a[1] != b[1] for a, b in zip(sequence, sequence[1:]))
+    row = {"phase": "models", "model": "llama3_1b x 2 (seeds "
+           f"{seed}, {seed + 1})", "layers": cfg.n_layers,
+           "sequence": [n for _, n in sequence],
+           "prompt_lengths": [len(p) for p, _ in sequence],
+           "max_tokens": max_tokens, "swaps": swaps,
+           "alternations": alternations, "swap_ms": swap_ms,
+           "swap": "drain, then the weights' pointers: both sets stay on "
+                   "the card", "forwards": forwards, "launches": launches,
+           "same_prompt_b_after_a": cross,
+           "identical_to_one_model": [r == a for r, a in zip(replies,
+                                                             alone)],
+           "card": smi}
+    emit(row)
+    check(swaps == alternations,
+          f"models: {swaps} swaps for {alternations} alternations")
+    check(cross == {"hits": 0, "misses": len(shared) // 16},
+          f"models: model b's lookups of a's prompt: {cross}")
+    for i, (r, a) in enumerate(zip(replies, alone)):
+        check(r == a, f"models: request {i} ({sequence[i][1]}) differs "
+                      f"from its one-model deployment: {r} != {a}")
+    return launches
+
+
+# -- phase 8: end-to-end logits against the CPU -------------------------------
 
 
 def to_cpu(tree):
@@ -754,7 +1281,7 @@ def logits_check(torch, seed):
     return row
 
 
-# -- phase 7: gradients against the CPU ---------------------------------------
+# -- phase 9: gradients against the CPU ---------------------------------------
 
 
 def named_leaves(tree, prefix=""):
@@ -867,7 +1394,7 @@ def grads_check(torch, seed):
     return row
 
 
-# -- phase 8: training ----------------------------------------------------------
+# -- phase 10: training -------------------------------------------------------
 
 
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -971,7 +1498,7 @@ def train(torch, seed, smi):
     return row
 
 
-# -- phase 9: peak memory under each remat mode against the plan -------------
+# -- phase 11: peak memory under each remat mode against the plan -------------
 
 
 # The host's time per step is read at this many tokens (batch 1): the
@@ -1119,19 +1646,31 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": per_kernel, "sources": sorted(_build.sources())})
 
+    seconds = {}
+
+    def phase(name, fn, *extra):
+        t = time.perf_counter()
+        out = fn(torch, args.seed, *extra)
+        seconds[name] = time.perf_counter() - t
+        return out
+
     kernel_resources(_build)
     time_ms = make_timer(torch)
-    flash_rows = flash_checks(torch, args.seed, time_ms)
-    bwd_rows = flash_bwd_checks(torch, args.seed, time_ms)
-    rms_rows = rms_checks(torch, args.seed, time_ms)
-    served = serve(torch, args.seed, smi)
-    logits_check(torch, args.seed)
-    grads_check(torch, args.seed)
-    trained = train(torch, args.seed, smi)
-    memory(torch, args.seed, smi)
+    flash_rows = phase("kernels: flash_fwd", flash_checks, time_ms)
+    bwd_rows = phase("kernels: flash_bwd", flash_bwd_checks, time_ms)
+    rms_rows = phase("kernels: rms_norm", rms_checks, time_ms)
+    served = phase("serve", serve, smi)
+    prefixed = phase("prefix", prefix, smi, time_ms)
+    multiplexed = phase("models", models, smi)
+    phase("logits", logits_check)
+    phase("grads", grads_check)
+    trained = phase("train", train, smi)
+    phase("memory", memory, smi)
+    emit({"phase": "seconds", "seconds": seconds})
 
     def entry(name, source, replaces, row, *others):
         by_path = {"serve": served["launches"][name],
+                   "prefix": prefixed[name], "models": multiplexed[name],
                    "train": trained["launches"][name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
@@ -1154,11 +1693,13 @@ def main(argv=None) -> int:
                for k in ("flash_bwd_dq", "flash_bwd_dkv"))
     kernels = [
         # The train step's shape, on the tensor-core kernel; decode (the
-        # 8-row kernel) and a 2048-token prefill beside it.
+        # 8-row kernel), a 2048-token prefill and a prefix hit's 4-token
+        # tail beside it.
         entry("flash_fwd", "ray_tpu_torch/csrc/flash_fwd.cu",
               "ray_tpu/ops/attention.py:56", fwd_row("train b4 s2048"),
               fwd_row("decode 8 slots"),
-              fwd_row("prefill bucket 2048 offset 0")),
+              fwd_row("prefill bucket 2048 offset 0"),
+              fwd_row("prefix tail bucket 4 offset 1024")),
         entry("rms_norm", "ray_tpu_torch/csrc/rms_norm.cu",
               "ray_tpu/ops/norms.py:44", rms8, rms8192),
         entry("flash_bwd_dq", "ray_tpu_torch/csrc/flash_bwd.cu",

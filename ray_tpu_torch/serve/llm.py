@@ -21,9 +21,27 @@ The engine is thread-safe: callers enqueue requests and block on their
 completion (or stream tokens); a background loop interleaves admission
 and decode.
 
-Not yet ported: the prefix/KV cache and its shm tier, multi-model
-``swap_params``, critical-path stages and ``perf_stats`` counters, and
-the serve runtime (proxy, router, controller).
+Prefix/KV cache (on by default, as in the JAX engine): the full
+``kv_block_tokens``-sized chunks of every admitted prompt are
+hash-chained into the :class:`~ray_tpu_torch._private.kv_cache.PrefixCache`
+decision core, and their KV is read back into a host arena (pinned
+memory on CUDA, made once) after the admission wave's first tokens, so
+TTFT never pays for it. A later request that shares the prompt head
+copies the matched blocks into its slot and prefills ONLY the tail, at
+the tail's bucket, from the matched offset. Every copy runs on the engine's one
+stream, ordered after the wave's prefills and any decode block still
+writing into a retired slot. Chain keys are seeded with the model's
+name, so two models never cross-hit.
+
+Multi-model: ``LLMDeployment(models={...})`` holds N weight sets for one
+engine; a request for another model drains the engine and swaps the
+weights (:meth:`LLMEngine.swap_params`), under a cold-start deadline.
+
+Not yet ported: the prefix cache's shm warm tier (it waits for the
+object plane; an evicted payload is dropped, as the JAX engine does with
+no plane), ``prefix_digests`` and cache-affinity routing, critical-path
+stages and ``perf_stats`` counters (they come with the serve runtime:
+proxy, router, controller).
 """
 
 from __future__ import annotations
@@ -39,6 +57,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import _build
+from ray_tpu_torch._private.kv_cache import PrefixCache, chain_keys
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
     forward_with_cache,
@@ -71,6 +90,21 @@ class UnknownModelError(ValueError):
         self.known = list(known)
 
 
+class ModelSwapDeadlineError(RuntimeError):
+    """A weight swap took longer than the deployment's
+    ``model_swap_deadline_s``. The loaded weights STAY cached, so an
+    immediate retry is warm: the deadline is a latency contract, not a
+    capability failure."""
+
+    def __init__(self, model: str, took_s: float, deadline_s: float):
+        super().__init__(
+            f"swap to model {model!r} took {took_s:.2f}s, over the "
+            f"{deadline_s:.2f}s cold-start deadline (retry is warm)")
+        self.model = model
+        self.took_s = took_s
+        self.deadline_s = deadline_s
+
+
 # Per-slot top_k values are clamped to this (one sorted prefix of this
 # width serves every slot).
 _TOP_K_MAX = 64
@@ -91,7 +125,9 @@ class _Request:
     params: SamplingParams
     out_queue: "queue.Queue"
     tokens: List[int] = dataclasses.field(default_factory=list)
+    model: Optional[str] = None
     priority: int = 1     # 0 interactive > 1 normal > 2 batch
+    job: str = "default"  # the tenant charged for the prompt's KV blocks
 
 
 def _params_to(tree, device):
@@ -104,7 +140,9 @@ class LLMEngine:
     def __init__(self, cfg: LlamaConfig, params, *,
                  max_batch_size: int = 8, max_seq_len: Optional[int] = None,
                  decode_steps: int = 1, seed: int = 0,
-                 model: str = "default", device=None):
+                 model: str = "default", prefix_cache: bool = True,
+                 kv_block_tokens: int = 16,
+                 prefix_cache_bytes: int = 256 << 20, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _params_to(params, self.device)
@@ -130,6 +168,10 @@ class LLMEngine:
         self._topks_arr = np.zeros(self.n_slots, np.int32)
 
         self._queue: "queue.Queue[_Request]" = queue.Queue()
+        # Requests accepted by generate() and not yet retired: a weight
+        # swap needs 0 (a request drained from the queue but not yet in
+        # a slot is neither queued nor active).
+        self._unfinished = 0
         self._req_counter = itertools.count()
         self._lock = threading.Lock()
         self._running = threading.Event()
@@ -143,6 +185,38 @@ class LLMEngine:
         # Model forwards run, for callers that check kernel launch counts.
         self._n_prefills = 0
         self._n_decode_forwards = 0
+
+        # Prefix/KV cache: the PrefixCache decision core decides which
+        # blocks exist, are pinned or get evicted; their payloads live in
+        # a host arena made once (pinned on CUDA, so that no copy pays
+        # for pinning memory), one row [2 (k, v), L, block_tokens, Hkv,
+        # D] per block the capacity holds. _kv_store maps each resident
+        # block's generation id to its row: an evicted block's row is
+        # freed and its payload dropped.
+        self.block_tokens = max(1, int(kv_block_tokens))
+        k = self.cache["k"]
+        per_token = 2 * k.numel() * k.element_size() \
+            // (k.shape[1] * k.shape[2])
+        self._block_nbytes = per_token * self.block_tokens
+        self.prefix_cache: Optional[PrefixCache] = None
+        self._kv_store: Dict[int, int] = {}
+        if prefix_cache and self.block_tokens < self.max_seq:
+            self.prefix_cache = PrefixCache(prefix_cache_bytes,
+                                            self.block_tokens)
+            rows = int(prefix_cache_bytes) // self._block_nbytes
+            self._kv_arena = torch.empty(
+                (rows, 2, k.shape[0], self.block_tokens) + k.shape[3:],
+                dtype=k.dtype, pin_memory=self.device.type == "cuda")
+            self._free_rows = list(range(rows - 1, -1, -1))
+        self._chain_seed = self._seed_for(model)
+
+    def _seed_for(self, model: str) -> str:
+        """Chain-key seed: model identity + the KV-shape fingerprint, the
+        JAX engine's string. Two chains share keys only when the cached
+        bytes are interchangeable: same model, same layout."""
+        c = self.cfg
+        return (f"{model}|{c.n_layers}x{c.dim}x{c.n_kv_heads}x"
+                f"{c.max_seq_len}|{self.block_tokens}")
 
     def warmup(self, max_prompt_len: Optional[int] = None) -> float:
         """Build the kernels and run every serving shape once before the
@@ -178,16 +252,19 @@ class LLMEngine:
 
     # -- device work -----------------------------------------------------
 
-    def _prefill(self, tokens: torch.Tensor, slot: int,
-                 length: int) -> torch.Tensor:
-        """tokens: ``[1, bucket]`` padded prompt; writes the slot's KV from
-        position 0 and returns the logits at the last real position
+    def _prefill(self, tokens: torch.Tensor, slot: int, length: int,
+                 start: int = 0) -> torch.Tensor:
+        """tokens: ``[1, bucket]`` padded prompt tail; writes the slot's KV
+        from absolute position ``start`` (0 for a full prefill; the
+        matched prefix's length when cached blocks were copied in ahead
+        of this call) and returns the logits at the last real position
         ``[vocab]``."""
         slot_cache = {"k": self.cache["k"][:, slot:slot + 1],
                       "v": self.cache["v"][:, slot:slot + 1]}
-        start = torch.zeros(1, dtype=torch.int32, device=self.device)
+        start_pos = torch.full((1,), start, dtype=torch.int32,
+                               device=self.device)
         logits, _ = forward_with_cache(self.params, tokens, self.cfg,
-                                       slot_cache, start)
+                                       slot_cache, start_pos)
         self._n_prefills += 1
         return logits[0, length - 1]
 
@@ -274,6 +351,11 @@ class LLMEngine:
                     target=self._loop, daemon=True, name="llm-engine")
                 self._thread.start()
 
+    def running(self) -> bool:
+        """Whether the engine loop is alive, i.e. admits and retires."""
+        t = self._thread
+        return t is not None and t.is_alive()
+
     def stop(self):
         self._running.clear()
         t = self._thread
@@ -284,8 +366,15 @@ class LLMEngine:
     def generate(self, prompt_ids: List[int],
                  params: Optional[SamplingParams] = None,
                  stream: bool = False, *,
-                 priority: int = 1):
-        """Blocking generate (or an iterator of tokens with stream=True)."""
+                 model: Optional[str] = None,
+                 priority: int = 1,
+                 job: str = "default"):
+        """Blocking generate (or an iterator of tokens with stream=True).
+        ``model``, when given, must name the engine's live weight set
+        (:class:`LLMDeployment` swaps weight sets); another name raises
+        :class:`UnknownModelError`. ``job`` is the tenant that the
+        prompt's cached KV blocks are charged to
+        (:meth:`PrefixCache.charges`)."""
         prompt = [int(t) for t in prompt_ids]
         cap = self.max_seq - 1
         if len(prompt) > cap:
@@ -299,7 +388,13 @@ class LLMEngine:
         req = _Request(
             request_id=next(self._req_counter), prompt=prompt,
             params=params or SamplingParams(), out_queue=queue.Queue(),
-            priority=max(0, min(2, int(priority))))
+            model=model, priority=max(0, min(2, int(priority))), job=job)
+        with self._lock:
+            # Checked with the count under one lock: swap_params cannot
+            # change the weights between this check and the admission.
+            if model is not None and model != self.model:
+                raise UnknownModelError(model, [self.model])
+            self._unfinished += 1
         self._queue.put(req)
         self.start()
 
@@ -316,14 +411,18 @@ class LLMEngine:
 
     def metrics(self) -> Dict[str, Any]:
         with self._lock:
-            return {
+            out = {
                 "active_slots": int(self._active.sum()),
                 "free_slots": len(self._free_slots),
                 "queued": self._queue.qsize(),
+                "unfinished": self._unfinished,
                 "model": self.model,
                 "prefills": self._n_prefills,
                 "decode_forwards": self._n_decode_forwards,
             }
+        if self.prefix_cache is not None:
+            out["kv_cache"] = self.prefix_cache.stats()
+        return out
 
     # -- engine loop -----------------------------------------------------
 
@@ -365,7 +464,7 @@ class LLMEngine:
         # Interactive (0) outranks normal (1) outranks batch (2); FIFO
         # within a class via the monotonic request id.
         drained.sort(key=lambda r: (r.priority, r.request_id))
-        staged = []  # (req, slot, t_real, last_logits)
+        staged = []  # (req, slot, t_real, last_logits, chain)
         leftover: List[_Request] = []
         for req in drained:
             if not self._free_slots:
@@ -373,11 +472,17 @@ class LLMEngine:
                 continue
             slot = self._free_slots.pop()
             t_real = len(req.prompt)
-            bucket = self._serve_bucket(t_real)
+            # Prefix-cache fast path: copy the matched KV blocks into the
+            # slot, then prefill ONLY the tail, at the tail's bucket, from
+            # the matched offset.
+            m_tok, chain = self._prefix_copy_in(req, slot, req.prompt)
+            tail = req.prompt[m_tok:]
+            bucket = self._serve_bucket(len(tail))
             tokens = torch.zeros((1, bucket), dtype=torch.long)
-            tokens[0, :t_real] = torch.tensor(req.prompt)
-            last = self._prefill(tokens.to(self.device), slot, t_real)
-            staged.append((req, slot, t_real, last))
+            tokens[0, :len(tail)] = torch.tensor(tail)
+            last = self._prefill(tokens.to(self.device), slot, len(tail),
+                                 m_tok)
+            staged.append((req, slot, t_real, last, chain))
         for req in leftover:
             self._queue.put(req)
         if not staged:
@@ -387,7 +492,7 @@ class LLMEngine:
                          np.float32)
         firsts = self._sample_admitted(
             torch.stack([s[3] for s in staged]), temps).cpu().numpy()
-        for (req, slot, t_real, _), first in zip(staged, firsts):
+        for (req, slot, t_real, _, _), first in zip(staged, firsts):
             first = int(first)
             req.tokens.append(first)
             req.out_queue.put(first)
@@ -399,8 +504,14 @@ class LLMEngine:
                 self._temps_arr[slot] = req.params.temperature
                 self._topks_arr[slot] = max(0, min(req.params.top_k,
                                                    _TOP_K_MAX))
-            if self._finished(req, first):
-                self._retire(slot)
+                if self._finished(req, first):
+                    self._retire(slot)
+        # Prefix-cache read-back AFTER the wave's first tokens, so TTFT
+        # does not pay for it. A slot retired above is re-admitted only by
+        # a LATER _admit call, whose copies the stream orders after these
+        # reads: the bytes read are this request's prefill output.
+        for req, slot, _, _, chain in staged:
+            self._prefix_admit(req, slot, chain)
         # Host state changed: rebuild device carries on the next decode.
         self._dev_last = self._dev_lengths = None
         return True
@@ -449,12 +560,118 @@ class LLMEngine:
         return len(req.tokens) >= req.params.max_tokens
 
     def _retire(self, slot: int):
+        """Free ``slot`` and end its request's stream. Caller holds
+        ``_lock``."""
         req = self._slot_req.pop(slot, None)
         if req is not None:
+            self._unfinished -= 1
             req.out_queue.put(None)
         self._active[slot] = False
         self._lengths[slot] = 0
         self._free_slots.append(slot)
+
+    # -- prefix/KV cache ------------------------------------------------
+    #
+    # A chain key commits to the model seed and every token of the
+    # prefix, so a key hit is byte-identical KV by construction (same
+    # weights, same tokens, causal attention).
+
+    def _prefix_copy_in(self, req: _Request, slot: int, prompt):
+        """Copy the longest cached prefix of ``prompt`` into ``slot``'s KV
+        region. Returns (matched tokens, chain keys)."""
+        pc = self.prefix_cache
+        if pc is None:
+            return 0, []
+        chain = chain_keys(prompt, self.block_tokens, self._chain_seed)
+        if not chain:
+            return 0, []
+        hit = pc.lookup(chain, req.job)
+        # Cap the match: (a) at least one real token goes through prefill
+        # (its last-position logits give the first token), and (b) the
+        # matched offset plus the tail's bucket fits the slot: the write
+        # of an overhanging bucket is clamped back (forward_with_cache)
+        # and would overwrite the copied prefix.
+        bt = self.block_tokens
+        m = min(len(hit), (len(prompt) - 1) // bt)
+        while m > 0 and m * bt + self._serve_bucket(len(prompt) - m * bt) \
+                > self.max_seq:
+            m -= 1
+        while len(hit) > m:
+            pc.release([hit.pop()])
+        if hit:
+            self._copy_blocks_in(slot, [self._kv_store[h.block_id]
+                                        for h in hit])
+        pc.release(hit)
+        return m * bt, chain
+
+    def _copy_blocks_in(self, slot: int, rows: List[int]):
+        """Write the arena rows of blocks 0..m-1 into ``slot``: one copy
+        to the device per run of consecutive rows, then one strided copy
+        each for k and v."""
+        m, bt = len(rows), self.block_tokens
+        stage = torch.empty((m,) + self._kv_arena.shape[1:],
+                            dtype=self._kv_arena.dtype, device=self.device)
+        for i, row, n in _runs(rows):
+            stage[i:i + n].copy_(self._kv_arena[row:row + n],
+                                 non_blocking=True)
+        for j, name in enumerate(("k", "v")):
+            dst = self.cache[name][:, slot, :m * bt].unflatten(1, (m, bt))
+            dst.copy_(stage[:, j].transpose(0, 1))
+
+    def _read_blocks(self, slot: int, indices: List[int], rows: List[int]):
+        """Copy the KV of blocks ``indices`` of ``slot`` to arena ``rows``:
+        one gather on the device, then one asynchronous copy to the host
+        per run of consecutive rows."""
+        bt = self.block_tokens
+        kv = torch.stack([self.cache[name][:, slot, i * bt:(i + 1) * bt]
+                          for i in indices for name in ("k", "v")])
+        kv = kv.unflatten(0, (len(indices), 2))
+        for i, row, n in _runs(rows):
+            self._kv_arena[row:row + n].copy_(kv[i:i + n],
+                                              non_blocking=True)
+
+    def _prefix_admit(self, req: _Request, slot: int, chain):
+        """After prefill, admit the prompt's full-block chain and read the
+        KV of the newly created blocks back to the host arena. An evicted
+        block's row is reused at once: a copy-in that still reads it was
+        enqueued before this copy writes it, on the same stream."""
+        pc = self.prefix_cache
+        if pc is None or not chain:
+            return
+        created, evicted = pc.admit(chain, req.job, self._block_nbytes)
+        for e in evicted:
+            self._free_rows.append(self._kv_store.pop(e.block_id))
+        if created:
+            rows = sorted(self._free_rows.pop() for _ in created)
+            self._read_blocks(slot, [h.index for h in created], rows)
+            for h, row in zip(created, rows):
+                self._kv_store[h.block_id] = row
+        pc.release(created)
+
+    # -- multi-model ----------------------------------------------------
+
+    def swap_params(self, params, model: str):
+        """Swap the served weight set (multi-model serving): the
+        parameters move to the engine's device and the chain seed follows
+        the model. The caller must have drained the engine: in-flight KV
+        belongs to the OLD model."""
+        with self._lock:
+            if self._unfinished:
+                raise RuntimeError(
+                    "swap_params on a non-idle engine: drain first")
+            self.params = _params_to(params, self.device)
+            self.model = model
+            self._chain_seed = self._seed_for(model)
+
+
+def _runs(rows: List[int]):
+    """``(position in rows, first row, count)`` of each run of
+    consecutive ``rows``."""
+    start = 0
+    for i in range(1, len(rows) + 1):
+        if i == len(rows) or rows[i] != rows[i - 1] + 1:
+            yield start, rows[start], i - start
+            start = i
 
 
 # -- Serve integration ------------------------------------------------------
@@ -476,13 +693,20 @@ def _parse_priority(raw) -> int:
 
 
 class LLMDeployment:
-    """Deployment-ready wrapper around one :class:`LLMEngine` holding one
-    model: build it, warm it up, start its loop, then call it with a
-    request dict (the contract of ``ray_tpu.serve.llm.LLMDeployment``):
-    ``{"prompt_ids": [...], "max_tokens", "temperature",
-    "stop_token_ids", "model", "priority", "stream"}`` (the JAX
-    deployment's ``"job"`` key feeds accounting not ported yet and is
-    ignored)."""
+    """Deployment-ready wrapper around one :class:`LLMEngine`: build it,
+    warm it up, start its loop, then call it with a request dict (the
+    contract of ``ray_tpu.serve.llm.LLMDeployment``): ``{"prompt_ids":
+    [...], "max_tokens", "temperature", "stop_token_ids", "model",
+    "priority", "job" (or "job_id"), "stream"}``.
+
+    The engine may multiplex N weight sets (``models={name: params or a
+    loader}``; ``params_fn`` alone is one model, ``"default"``). A request
+    for another model than the engine's drains the engine, then swaps the
+    weights (:meth:`LLMEngine.swap_params`); loaded weights stay cached,
+    so a swap back is a move to the device at most. A swap slower than
+    ``model_swap_deadline_s`` (0 = none) fails its request with
+    :class:`ModelSwapDeadlineError` after it completes, so the retry is
+    warm."""
 
     def __init__(self, cfg: LlamaConfig, params_fn: Callable[[], Any] = None,
                  max_batch_size: int = 8,
@@ -490,16 +714,74 @@ class LLMDeployment:
                  decode_steps: int = 1,
                  warmup: bool = True,
                  warmup_max_prompt_len: Optional[int] = None,
+                 models: Optional[Dict[str, Any]] = None,
+                 default_model: Optional[str] = None,
+                 prefix_cache: bool = True,
+                 kv_block_tokens: int = 16,
+                 prefix_cache_bytes: int = 256 << 20,
+                 model_swap_deadline_s: float = 30.0,
                  device=None):
-        if params_fn is None:
-            raise ValueError("LLMDeployment needs params_fn")
-        params = params_fn() if callable(params_fn) else params_fn
-        self.engine = LLMEngine(cfg, params, max_batch_size=max_batch_size,
+        self.models: Dict[str, Any] = dict(models or {})
+        if params_fn is not None and not self.models:
+            self.models[default_model or "default"] = params_fn
+        if not self.models:
+            raise ValueError("LLMDeployment needs params_fn or models={...}")
+        self.default_model = default_model or next(iter(self.models))
+        if self.default_model not in self.models:
+            raise UnknownModelError(self.default_model, list(self.models))
+        self.model_swap_deadline_s = float(model_swap_deadline_s or 0)
+        self._loaded: Dict[str, Any] = {}
+        self._swap_lock = threading.Lock()
+        self.engine = LLMEngine(cfg, self._load_model(self.default_model),
+                                max_batch_size=max_batch_size,
                                 max_seq_len=max_seq_len,
-                                decode_steps=decode_steps, device=device)
+                                decode_steps=decode_steps,
+                                model=self.default_model,
+                                prefix_cache=prefix_cache,
+                                kv_block_tokens=kv_block_tokens,
+                                prefix_cache_bytes=prefix_cache_bytes,
+                                device=device)
         self.warmup_s = self.engine.warmup(warmup_max_prompt_len) \
             if warmup else 0.0
         self.engine.start()
+
+    # -- model loading / swapping ---------------------------------------
+
+    def _load_model(self, model: str):
+        """A model's weights: what its loader returned the first time."""
+        cached = self._loaded.get(model)
+        if cached is None:
+            src = self.models[model]
+            cached = self._loaded[model] = src() if callable(src) else src
+        return cached
+
+    def _ensure_model(self, model: str):
+        """Make ``model`` the engine's live weight set. The caller holds
+        ``_swap_lock``, which also covers its enqueue: no other request
+        can slip a different model in between."""
+        if model not in self.models:
+            raise UnknownModelError(model, list(self.models))
+        if self.engine.model == model:
+            return
+        t0 = time.perf_counter()
+        # Drain: every request enqueues under _swap_lock (held by us), so
+        # the engine's unfinished requests can only fall, as long as its
+        # loop runs. A stopped or dead loop retires nothing: refuse the
+        # swap rather than wait under the lock for ever.
+        while (left := self.engine.metrics()["unfinished"]):
+            if not self.engine.running():
+                raise RuntimeError(
+                    f"cannot swap to model {model!r}: the engine loop is "
+                    f"not running and {left} request(s) of model "
+                    f"{self.engine.model!r} are unfinished")
+            time.sleep(0.002)
+        self.engine.swap_params(self._load_model(model), model)
+        took = time.perf_counter() - t0
+        if self.model_swap_deadline_s and took > self.model_swap_deadline_s:
+            # The swap COMPLETED and the weights stay cached: the
+            # caller's retry is warm.
+            raise ModelSwapDeadlineError(model, took,
+                                         self.model_swap_deadline_s)
 
     def __call__(self, request: Dict[str, Any]):
         t0 = time.perf_counter()
@@ -507,12 +789,18 @@ class LLMDeployment:
             max_tokens=int(request.get("max_tokens", 64)),
             temperature=float(request.get("temperature", 0.0)),
             stop_token_ids=tuple(request.get("stop_token_ids", ())))
-        model = str(request.get("model") or self.engine.model)
-        if model != self.engine.model:
-            raise UnknownModelError(model, [self.engine.model])
+        model = str(request.get("model") or self.default_model)
         priority = _parse_priority(request.get("priority", 1))
-        it = self.engine.generate(request["prompt_ids"], params, stream=True,
-                                  priority=priority)
+        job = str(request.get("job") or request.get("job_id") or "default")
+        # Hold the swap lock across ensure + enqueue: a concurrent request
+        # for ANOTHER model must not swap the weights between our check
+        # and our admission. Tokens are read outside the lock: a queued
+        # request pins its model, since any later swap drains it first.
+        with self._swap_lock:
+            self._ensure_model(model)
+            it = self.engine.generate(request["prompt_ids"], params,
+                                      stream=True, model=model,
+                                      priority=priority, job=job)
         if request.get("stream"):
             def token_stream():
                 for i, token in enumerate(it):

@@ -38,10 +38,11 @@ def test_fresh_interpreter_loads_no_jax_and_no_ray_tpu():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
-    assert int(lines["MODULES"]) >= 13
+    assert int(lines["MODULES"]) >= 15
     assert {"ray_tpu_torch.ops.cross_entropy",
             "ray_tpu_torch.models.training",
-            "ray_tpu_torch.models.memory_plan"} <= set(
+            "ray_tpu_torch.models.memory_plan",
+            "ray_tpu_torch._private.kv_cache"} <= set(
         lines["NAMES"].split(","))
     assert lines["BAD"] == "[]"
 

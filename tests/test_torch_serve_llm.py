@@ -26,10 +26,11 @@ from ray_tpu_torch.serve.llm import (
 _PAD = 64  # every prompt + generation below fits
 
 
-@pytest.fixture(scope="module")
-def model():
+def load_model(seed):
+    """LlamaConfig.debug() with JAX parameters from ``PRNGKey(seed)``
+    carried into the port: ``(cfg, params, naive_greedy)``."""
     jcfg = jllama.LlamaConfig.debug()
-    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(0))
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(seed))
     cfg = llama.LlamaConfig.debug()
     params = llama.params_from_jax(
         jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
@@ -48,6 +49,11 @@ def model():
         return tokens[len(prompt):]
 
     return cfg, params, naive_greedy
+
+
+@pytest.fixture(scope="module")
+def model():
+    return load_model(0)
 
 
 def _engine(cfg, params, **kw):
