@@ -74,6 +74,27 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              in the order False > "mlp" > "gate" > True, each within
              0.8-1.25 of the plan, and every checkpointing mode's
              whole-step peak below remat=False's.
+12. moe    — MoEConfig.mixtral_8x7b() at full width (dim 4096, 32/8
+             heads x 128, hidden 14336, 8 experts, top-2, vocab 32000)
+             cut to 2 layers, remat=True: three AdamW steps (bf16
+             moments) through make_train_step and moe_loss_fn on one
+             random batch of 2 x 2048 tokens; checks finite losses, a
+             falling ce_loss, the aux loss in 0.9-3.0 at the first step
+             and each step's launches (the flash forward twice per layer:
+             the checkpoint saves nothing and reruns it); prints step
+             time, tokens/s, model TFLOP/s against the 989 TFLOP/s bf16
+             peak, peak memory and a profiled fourth step. Then three
+             steps of MLPConfig(), whose loss must fall.
+13. moe_grads — the MoE cut in width (dim 1024, 8/2 heads x 128, hidden
+             3584, 2 layers), 1 x 256 tokens: logits, aux loss, loss and
+             every leaf's gradient on the card (bf16, kernels) against
+             the CPU (f32, plain versions), near-tie routing counted and
+             its tokens left out of the logits' comparison.
+14. hf     — Llama-3.2-1B (full width and depth) written as an HF
+             checkpoint directory (config.json, model.safetensors) and
+             loaded by load_llama_from_hf on the card: every leaf equal
+             bit for bit, 4 greedy requests answered with the tokens of
+             the original weights; prints the load seconds and GB/s.
 
 Then each phase's wall seconds, the kernels line and, last, ``{"ok":
 true, "device": {...}}``. Any
@@ -354,6 +375,9 @@ def flash_checks(torch, seed, time_ms):
     rows.append(case("decode 8 slots", 8, 1, 2048, decode_offsets, True,
                      bf16))
     rows.append(case("train b4 s2048", 4, 2048, 2048, None, True, bf16))
+    # The MoE phase's training shape at Mixtral's width.
+    rows.append(case("mixtral train b2 s2048 d128", 2, 2048, 2048, None,
+                     True, bf16, d=128))
     rows.append(case("non-causal ragged", 2, 512, 1000, None, False, bf16))
     rows.append(case("head_dim 128", 1, 512, 2048, [0], True, bf16, d=128))
     rows.append(case("float32", 1, 512, 2048, [0], True, torch.float32))
@@ -485,6 +509,7 @@ def flash_bwd_checks(torch, seed, time_ms):
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("train b4 s2048", 4, 2048, 2048, True, bf16),
+             ("mixtral train b2 s2048 d128", 2, 2048, 2048, True, bf16, 128),
              ("ragged Sq=Sk=1000", 1, 1000, 1000, True, bf16),
              ("non-causal Sq 300 Sk 517", 2, 300, 517, False, bf16),
              ("head_dim 128", 1, 512, 512, True, bf16, 128),
@@ -511,50 +536,52 @@ def rms_checks(torch, seed, time_ms):
     from ray_tpu_torch.ops.norms import rms_norm, rms_norm_reference
 
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for n in (8, 512, 2048, 8192):
-            g = torch.Generator("cuda").manual_seed(seed + n)
-            d = 2048
-            x = torch.randn((n, d), generator=g, device="cuda").to(dtype)
-            w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")
-                 ).to(dtype)
-            out = rms_norm(x, w, 1e-5)
-            ref = rms_norm_reference(x, w, 1e-5)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            mag = ref.float().abs().max().item()
-            # Both compute in f32 and round once; the sum of squares is
-            # taken in another order, which can flip one bf16 rounding
-            # (2**-8 relative): allow 2 ulps. f32: order only.
-            tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * mag
-            dname = str(dtype).split(".")[-1]
-            nbytes = (2 * x.numel() + w.numel()) * x.element_size()
-            b_ms, b_by = bound(nbytes, 4 * x.numel(), dname)
+    # Llama-3.2-1B's width at decode to train row counts, then the MoE
+    # phase's norms at Mixtral's width (b 2 x s 2048 rows of 4096).
+    cases = [(dtype, n, 2048, f"rows {n}")
+             for dtype in (torch.bfloat16, torch.float32)
+             for n in (8, 512, 2048, 8192)]
+    cases.append((torch.bfloat16, 4096, 4096, "mixtral rows 4096 x 4096"))
+    for dtype, n, d, label in cases:
+        g = torch.Generator("cuda").manual_seed(seed + n)
+        x = torch.randn((n, d), generator=g, device="cuda").to(dtype)
+        w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+             ).to(dtype)
+        out = rms_norm(x, w, 1e-5)
+        ref = rms_norm_reference(x, w, 1e-5)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        mag = ref.float().abs().max().item()
+        # Both compute in f32 and round once; the sum of squares is
+        # taken in another order, which can flip one bf16 rounding
+        # (2**-8 relative): allow 2 ulps. f32: order only.
+        tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * mag
+        dname = str(dtype).split(".")[-1]
+        nbytes = (2 * x.numel() + w.numel()) * x.element_size()
+        b_ms, b_by = bound(nbytes, 4 * x.numel(), dname)
 
-            def kernel():
-                return rms_norm(x, w, 1e-5)
+        def kernel():
+            return rms_norm(x, w, 1e-5)
 
-            def library():
-                return F.rms_norm(x, (d,), w, 1e-5)
+        def library():
+            return F.rms_norm(x, (d,), w, 1e-5)
 
-            kernel_t = time_ms.stats(kernel)
-            library_t = time_ms.stats(library)
-            row = {"phase": "kernels", "kernel": "rms_norm",
-                   "case": f"rows {n}", "shape": {"rows": n, "d": d,
-                                                  "dtype": dname},
-                   "max_abs_err": err, "tol": tol,
-                   "kernel_ms": kernel_t["median"],
-                   "kernel_ms_stats": kernel_t,
-                   "plain_ms": time_ms(lambda: rms_norm_reference(x, w,
-                                                                  1e-5)),
-                   "library_ms": library_t["median"],
-                   "library_ms_stats": library_t,
-                   "library": "torch.nn.functional.rms_norm",
-                   "bound_ms": b_ms, "bound_by": b_by}
-            emit(row)
-            check(bool(torch.isfinite(out.float()).all()) and err <= tol,
-                  f"rms_norm rows {n} {dname}: err {err} (tol {tol})")
-            rows.append(row)
+        kernel_t = time_ms.stats(kernel)
+        library_t = time_ms.stats(library)
+        row = {"phase": "kernels", "kernel": "rms_norm",
+               "case": label, "shape": {"rows": n, "d": d, "dtype": dname},
+               "max_abs_err": err, "tol": tol,
+               "kernel_ms": kernel_t["median"],
+               "kernel_ms_stats": kernel_t,
+               "plain_ms": time_ms(lambda: rms_norm_reference(x, w, 1e-5)),
+               "library_ms": library_t["median"],
+               "library_ms_stats": library_t,
+               "library": "torch.nn.functional.rms_norm",
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        check(bool(torch.isfinite(out.float()).all()) and err <= tol,
+              f"rms_norm {label} {dname}: err {err} (tol {tol})")
+        rows.append(row)
     return rows
 
 
@@ -1421,12 +1448,27 @@ def train_setup(torch, cfg, seed):
                        "targets": torch.roll(tokens, -1, dims=1)}
 
 
+def step_records(torch, step, state, batch, steps, counts):
+    """Run ``steps`` train steps; each record has the step's host ms
+    (between synchronizes), its metrics and the kernel launches it made."""
+    records = []
+    for i in range(steps):
+        c0 = counts()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        c1 = counts()
+        rec = {"step": i, "ms": ms}
+        rec.update({k: v.item() for k, v in metrics.items()})
+        rec["launches"] = {k: c1[k] - c0[k] for k in c1}
+        records.append(rec)
+    return state, records
+
+
 def train(torch, seed, smi):
     from ray_tpu_torch.models.llama import LlamaConfig, loss_fn
     from ray_tpu_torch.models.training import make_train_step
-    from ray_tpu_torch.ops.attention import (flash_attention_bwd,
-                                             flash_attention_fwd)
-    from ray_tpu_torch.ops.norms import rms_norm
 
     # bench.py's configuration: remat="gate", batch 4 x 2048, bf16 moments.
     cfg = dataclasses.replace(LlamaConfig.llama3_1b(), remat="gate")
@@ -1437,29 +1479,13 @@ def train(torch, seed, smi):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    def counts():
-        return {"flash_fwd": flash_attention_fwd.launches,
-                "flash_bwd_dq": flash_attention_bwd.dq_launches,
-                "flash_bwd_dkv": flash_attention_bwd.dkv_launches,
-                "rms_norm": rms_norm.launches}
-
     # The main path's run: kernel counts from 0 just before, read just
     # after.
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_fwd.launches = rms_norm.launches = 0
-    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
-    records = []
-    for i in range(steps):
-        c0 = counts()
-        t = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        c1 = counts()
-        records.append({"step": i, "ms": ms, "loss": metrics["loss"].item(),
-                        "grad_norm": metrics["grad_norm"].item(),
-                        "launches": {k: c1[k] - c0[k] for k in c1}})
-    launches = counts()
+    zero_counts()
+    state, records = step_records(torch, step, state, batch, steps,
+                                  read_counts)
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # The flash forward is saved across each layer's checkpoint, so it
     # runs once per layer. rms_norm runs twice per layer and once at the
@@ -1612,6 +1638,469 @@ def memory(torch, seed, smi):
     return row
 
 
+# -- phase 12: the MoE model at Mixtral-8x7B's width --------------------------
+
+
+MOE_BATCH, MOE_SEQ, MOE_LAYERS = 2, 2048, 2
+
+
+def moe_step_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one remat=True train step of the dense-masked MoE:
+    every matrix product of the forward, of its recompute (nothing is
+    saved across a layer's checkpoint) and of the backward (twice the
+    forward's), the flash kernels' products (forward 4, recompute 4, dq 6
+    and dk/dv 8 operations per head_dim per visible (row, key) pair), and
+    the output head (forward and backward, outside the checkpoint)."""
+    d, hd, e, f = cfg.dim, cfg.head_dim, cfg.n_experts, cfg.hidden_dim
+    n = b * s
+    per_token = 2 * (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                     + cfg.n_heads * hd * d + d * e + 3 * e * d * f)
+    layer_mm = 4 * n * per_token          # forward, recompute, 2 x backward
+    pairs = b * cfg.n_heads * visible_keys(s, s, True)
+    layer_attn = (4 + 4 + 6 + 8) * hd * pairs
+    head = 3 * 2 * n * d * cfg.vocab_size
+    return cfg.n_layers * (layer_mm + layer_attn) + head
+
+
+def moe(torch, seed, smi):
+    """MoEConfig.mixtral_8x7b() at full width cut to MOE_LAYERS layers:
+    three AdamW steps (bf16 moments) through make_train_step and
+    moe_loss_fn on one random batch of MOE_BATCH x MOE_SEQ tokens; then
+    three steps of MLPConfig() on the card."""
+    from ray_tpu_torch.models.moe import (MoEConfig, init_moe_params,
+                                          moe_loss_fn)
+    from ray_tpu_torch.models.training import (init_train_state,
+                                               make_optimizer,
+                                               make_train_step)
+
+    cfg = dataclasses.replace(MoEConfig.mixtral_8x7b(), n_layers=MOE_LAYERS,
+                              remat=True)
+    t0 = time.perf_counter()
+    tx = make_optimizer(3e-4, warmup_steps=0, moment_dtype=torch.bfloat16)
+    params = init_moe_params(cfg, torch.Generator("cuda").manual_seed(
+        seed + 8), "cuda")
+    state = init_train_state(params, tx)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ),
+                           device="cuda", generator=torch.Generator(
+                               "cuda").manual_seed(seed + 8))
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    step = make_train_step(lambda p, b: moe_loss_fn(p, b, cfg), tx)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+
+    # The main path's run: kernel counts from 0 just before, read just
+    # after.
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    state, records = step_records(torch, step, state, batch, 3, read_counts)
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Every layer is checkpointed with nothing saved: its forward runs
+    # again in the backward, the flash forward and both norms included.
+    # One rms_norm more for the final norm (outside the checkpoint).
+    per_step = {"flash_fwd": 2 * cfg.n_layers, "rms_norm": 4 * cfg.n_layers
+                + 1, "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers}
+    profile = device_profile(torch, lambda: step(state, batch), 1)
+    steady_ms = statistics.mean(r["ms"] for r in records[1:])
+    flops = moe_step_flops(cfg, MOE_BATCH, MOE_SEQ)
+    row = {"phase": "moe", "model": f"mixtral_8x7b cut to {cfg.n_layers} "
+           "layers", "dim": cfg.dim, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.head_dim, "hidden": cfg.hidden_dim,
+           "experts": [cfg.n_experts, cfg.n_experts_per_token],
+           "vocab": cfg.vocab_size, "params": n_params,
+           "batch": MOE_BATCH, "seq": MOE_SEQ, "remat": cfg.remat,
+           "optimizer": "make_optimizer(3e-4, warmup_steps=0, "
+                        "moment_dtype=bfloat16)",
+           "setup_s": setup_s, "steps": records, "step_ms_steady": steady_ms,
+           "tokens_per_s": MOE_BATCH * MOE_SEQ / steady_ms * 1e3,
+           "model_tflop_per_step": flops / 1e12,
+           "model_tflop_per_s": flops / steady_ms / 1e9,
+           "share_of_989_tflop_per_s": flops / steady_ms / 1e9 / 989,
+           "least_step_ms_at_989": flops / 989e12 * 1e3,
+           "peak_memory_gb": peak_gb, "launches": launches,
+           "launches_per_step": per_step, "step_profile": profile,
+           "card": smi}
+    del state, params, batch, step
+    torch.cuda.empty_cache()
+    row["mlp"] = mlp_train(torch, seed)
+    emit(row)
+    for r in records:
+        check(r["launches"] == per_step,
+              f"moe step {r['step']}: launches {r['launches']}, expected "
+              f"{per_step}")
+        check(all(math.isfinite(r[k]) for k in ("loss", "ce_loss",
+                                                 "aux_loss", "grad_norm")),
+              f"moe step {r['step']}: {r}")
+    check(0.9 < records[0]["aux_loss"] < 3.0,
+          f"moe: aux loss {records[0]['aux_loss']} at the first step, "
+          "expected between 0.9 and 3.0")
+    ces = [r["ce_loss"] for r in records]
+    check(ces[-1] < ces[0], f"moe: ce_loss did not fall: {ces}")
+    mlp_losses = [r["loss"] for r in row["mlp"]["steps"]]
+    check(all(map(math.isfinite, mlp_losses))
+          and mlp_losses[-1] < mlp_losses[0],
+          f"moe, MLP: loss did not fall: {mlp_losses}")
+    return row
+
+
+def mlp_train(torch, seed):
+    """Three AdamW steps of MLPConfig() (784-128-128-10, f32) on one random
+    batch of 256 on the card."""
+    from ray_tpu_torch.models.mlp import MLPConfig, mlp_init, mlp_loss
+    from ray_tpu_torch.models.training import (init_train_state,
+                                               make_optimizer,
+                                               make_train_step)
+
+    cfg = MLPConfig()
+    g = torch.Generator("cuda").manual_seed(seed + 10)
+    tx = make_optimizer(1e-3, warmup_steps=0)
+    state = init_train_state(mlp_init(cfg, g, "cuda"), tx)
+    batch = {"x": torch.randn((256, cfg.in_dim), generator=g, device="cuda"),
+             "y": torch.randint(0, cfg.n_classes, (256,), generator=g,
+                                device="cuda")}
+    step = make_train_step(mlp_loss, tx)
+    # No kernel: its launches read 0.
+    _, records = step_records(torch, step, state, batch, 3, read_counts)
+    return {"model": "MLPConfig() 784-128-128-10 f32", "batch": 256,
+            "steps": records}
+
+
+# -- phase 13: the MoE model's logits, aux loss and gradients against the CPU --
+
+
+# A token is a near tie where, in some layer, the CPU's (f32) router
+# logits of its k-th and (k+1)-th experts lie closer than twice the
+# token's largest difference between the card's (bf16) router logits
+# and the CPU's there: only then can the two errors together reorder
+# them. Every token whose selection differs between card and CPU must be
+# a near tie (else the card's gating is wrong), and at most
+# MOE_TIE_SHARE of the tokens may be near ties (else the card's router
+# logits are too far off).
+MOE_TIE_SHARE = 0.1
+
+# Relative error ||g_card - g_cpu|| / ||g_cpu|| allowed for each leaf of
+# the width-cut MoE (bf16 with the kernels on the card, f32 with their
+# plain versions on the CPU). Two kinds of leaf:
+# - attention, embeddings, head and the norms before attention: a few
+#   bf16 roundings through two layers, as GRAD_LIMITS for Llama;
+# - the FFN's (mlp_norm, router, experts): also every token that a near
+#   tie routes to another expert on the card. One such token of an
+#   expert's ~64 changes that expert's gradient by ~1/8 (a sum of ~64
+#   rank-one terms in unrelated directions loses or gains one), so a few
+#   of them move these leaves by several percent.
+# The limits are about twice a rehearsal's readings (bf16 against f32,
+# both on a CPU: 0.013-0.021 and 0.063-0.066, with 3 tokens routed
+# differently); see PERF.md for the card's.
+MOE_GRAD_LIMITS = {
+    "/embed": 0.04, "/out": 0.03, "/final_norm": 0.03,
+    "/layers/attn_norm": 0.035, "/layers/wq": 0.04, "/layers/wk": 0.04,
+    "/layers/wv": 0.03, "/layers/wo": 0.03, "/layers/mlp_norm": 0.13,
+    "/layers/router": 0.13, "/layers/we1": 0.13, "/layers/we3": 0.13,
+    "/layers/we2": 0.13,
+}
+
+
+@contextlib.contextmanager
+def routing_recorded(module, k):
+    """While the block runs, every call of ``module._moe_ffn`` records its
+    router logits (f32), the experts it selects (``probs >= k-th
+    largest``, as the gating does) and the gap between the k-th and
+    (k+1)-th router logits, each ``[B, S, ...]`` on the CPU."""
+    calls = []
+    orig = module._moe_ffn
+
+    def recording(cfg, lp, x):
+        logits = (x @ lp["router"]).float().detach()
+        top = logits.topk(k + 1, dim=-1).values
+        probs = logits.softmax(-1)
+        calls.append({"logits": logits.cpu(), "selected": (
+            probs >= probs.topk(k, -1).values[..., -1:]).cpu(),
+            "gap": (top[..., k - 1] - top[..., k]).cpu()})
+        return orig(cfg, lp, x)
+
+    module._moe_ffn = recording
+    try:
+        yield calls
+    finally:
+        module._moe_ffn = orig
+
+
+def moe_grads(torch, seed):
+    """A MoE cut in width that keeps head_dim 128 and 4 query heads per KV
+    head (dim 1024, 8/2 heads, hidden 3584, 8 experts, top-2, vocab
+    32000, 2 layers), 1 x 256 tokens: logits, aux loss, loss and every
+    leaf's gradient on the card (bf16, kernels) against the CPU (f32, the
+    kernels' plain versions), with near-tie routing counted."""
+    from ray_tpu_torch.models import moe as moe_mod
+    from ray_tpu_torch.ops.attention import (flash_attention_bwd,
+                                             flash_attention_fwd)
+
+    cfg = dataclasses.replace(
+        moe_mod.MoEConfig.mixtral_8x7b(), dim=1024, n_heads=8, n_kv_heads=2,
+        hidden_dim=3584, n_layers=2, max_seq_len=2048, remat=False)
+    cfg_cpu = dataclasses.replace(cfg, dtype=torch.float32,
+                                  attention="flash")
+    params = moe_mod.init_moe_params(
+        cfg, torch.Generator("cuda").manual_seed(seed + 11), "cuda")
+    params_cpu = to_cpu(params)
+    rng = np.random.default_rng(seed + 11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    k = cfg.n_experts_per_token
+
+    def run(p, c, device):
+        b = {n: v.to(device) for n, v in batch.items()}
+        with torch.no_grad(), routing_recorded(moe_mod, k) as calls:
+            logits, aux = moe_mod.moe_forward(p, b["tokens"], c)
+        named = named_leaves(p)
+        for _, t in named:
+            t.requires_grad_()
+        loss, _ = moe_mod.moe_loss_fn(p, b, c)
+        gs = torch.autograd.grad(loss, [t for _, t in named])
+        for _, t in named:
+            t.requires_grad_(False)
+        return (logits[0].float().cpu(), aux.item(), loss.item(),
+                {n: g.float().cpu() for (n, _), g in zip(named, gs)}, calls)
+
+    fwd0 = flash_attention_fwd.launches
+    dq0 = flash_attention_bwd.dq_launches
+    logits, aux, loss, grads, routes = run(params, cfg, "cuda")
+    launches = {"flash_fwd": flash_attention_fwd.launches - fwd0,
+                "flash_bwd_dq": flash_attention_bwd.dq_launches - dq0}
+    ref_logits, ref_aux, ref_loss, ref_grads, ref_routes = run(
+        params_cpu, cfg_cpu, "cpu")
+
+    gaps = torch.stack([c["gap"][0] for c in ref_routes])        # [L, S]
+    router_err = torch.stack([(a["logits"][0] - b["logits"][0]).abs().amax(
+        -1) for a, b in zip(routes, ref_routes)])                  # [L, S]
+    near = (gaps < 2 * router_err).any(0)                          # [S]
+    differs = torch.stack([(a["selected"][0] != b["selected"][0]).any(-1)
+                           for a, b in zip(routes, ref_routes)]).any(0)
+    keep = ~near
+    diff = (logits - ref_logits).abs()[keep]
+    std = ref_logits[keep].std().item()
+    # As the logits phase: 2**-7 of each logit plus a tenth of the
+    # logits' spread for the bf16 hidden state.
+    tol = 2 ** -7 * ref_logits[keep].abs() + 0.1 * std
+    err_over_tol = (diff / tol).max().item()
+    leaves = {}
+    for name, r in ref_grads.items():
+        g = grads[name]
+        leaves[name] = {"rel_err": ((g - r).norm() / r.norm()).item(),
+                        "limit": MOE_GRAD_LIMITS.get(name),
+                        "finite": bool(torch.isfinite(g).all())}
+    row = {"phase": "moe_grads", "model": "mixtral_8x7b cut to dim 1024, "
+           "8/2 heads x 128, hidden 3584, 2 layers", "batch": [1, 256],
+           "router_logit_max_abs_err": router_err.amax(-1).tolist(),
+           "router_logit_median_abs_err": router_err.median(-1).values
+           .tolist(),
+           "near_tie": "in some layer, the k-th minus the (k+1)-th router "
+                       "logit (CPU) under 2 x the token's largest router "
+                       "logit error there",
+           "near_tie_tokens": int(near.sum()),
+           "near_tie_share": near.float().mean().item(),
+           "max_near_tie_share": MOE_TIE_SHARE,
+           "tokens_routed_differently": int(differs.sum()),
+           "gaps_of_tokens_routed_differently": gaps[:, differs].tolist(),
+           "logits_max_abs_err": diff.max().item(),
+           "logits_tol": "2**-7 x |logit| + 0.1 x std(logits), at the "
+                         "tokens that are no near tie",
+           "logits_max_err_over_tol": err_over_tol,
+           "argmax_agreement": (logits.argmax(-1) == ref_logits.argmax(-1))[
+               keep].float().mean().item(),
+           "aux": aux, "aux_cpu": ref_aux, "loss": loss, "loss_cpu": ref_loss,
+           "launches": launches,
+           "check": "per leaf ||g - g_cpu|| / ||g_cpu|| <= limit",
+           "leaves": leaves}
+    emit(row)
+    check(set(leaves) == set(MOE_GRAD_LIMITS), f"leaves {sorted(leaves)}")
+    check(launches == {"flash_fwd": 2 * cfg.n_layers,
+                       "flash_bwd_dq": cfg.n_layers},
+          f"moe_grads: launches {launches} for {cfg.n_layers} layers (one "
+          "forward without grad, one with)")
+    check(row["near_tie_share"] <= MOE_TIE_SHARE,
+          f"moe_grads: {row['near_tie_share']} of the tokens are near ties")
+    check(not (differs & ~near).any(),
+          f"moe_grads: tokens {torch.nonzero(differs & ~near).flatten()} "
+          "are routed differently on the card with no near tie")
+    check(bool(torch.isfinite(logits).all()) and err_over_tol <= 1
+          and row["argmax_agreement"] >= 0.9,
+          f"moe_grads: logits {err_over_tol} x tol, argmax agreement "
+          f"{row['argmax_agreement']}")
+    check(abs(aux - ref_aux) <= 1e-2 * abs(ref_aux),
+          f"moe_grads: aux {aux} on the card, {ref_aux} on the CPU")
+    check(abs(loss - ref_loss) <= 1e-2 * abs(ref_loss),
+          f"moe_grads: loss {loss} on the card, {ref_loss} on the CPU")
+    bad = [n for n, v in leaves.items()
+           if not (v["finite"] and v["rel_err"] <= v["limit"])]
+    check(not bad, f"moe_grads: leaves over their limits: "
+                   f"{ {n: leaves[n] for n in bad} }")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phase 14: a Llama checkpoint in the HF layout, loaded and served ----------
+
+
+_SAFETENSORS_DTYPES = {"bfloat16": "BF16", "float16": "F16",
+                       "float32": "F32"}
+
+
+def write_safetensors(path, tensors) -> int:
+    """Write ``{name: tensor}`` in the safetensors format (an 8-byte
+    little-endian header length, a JSON header padded with spaces to 8
+    bytes, then each tensor's little-endian bytes in order). Returns the
+    file's size."""
+    import torch
+
+    header, offset, flat = {}, 0, {}
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        raw = t.reshape(-1).view(torch.uint8)
+        flat[name] = raw
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[str(t.dtype).split(
+            ".")[-1]], "shape": list(t.shape),
+            "data_offsets": [offset, offset + raw.numel()]}
+        offset += raw.numel()
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(len(text).to_bytes(8, "little"))
+        f.write(text)
+        for raw in flat.values():
+            f.write(raw.numpy().data)
+    return 8 + len(text) + offset
+
+
+def hf_state_dict(params, cfg):
+    """The port's Llama parameters as an HF ``LlamaForCausalLM`` state dict
+    (the inverse of ``params_from_hf_state_dict``): projections as
+    ``[out, in]`` (Q/K rows in the split-half RoPE order that HF and the
+    port share), no ``lm_head`` when the embeddings are tied."""
+    d = cfg.dim
+    lay = params["layers"]
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["final_norm"]}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "self_attn.q_proj.weight": lay["wq"][i].reshape(d, -1).T,
+            p + "self_attn.k_proj.weight": lay["wk"][i].reshape(d, -1).T,
+            p + "self_attn.v_proj.weight": lay["wv"][i].reshape(d, -1).T,
+            p + "self_attn.o_proj.weight": lay["wo"][i].reshape(-1, d).T,
+            p + "mlp.gate_proj.weight": lay["w1"][i].T,
+            p + "mlp.up_proj.weight": lay["w3"][i].T,
+            p + "mlp.down_proj.weight": lay["w2"][i].T,
+            p + "input_layernorm.weight": lay["attn_norm"][i],
+            p + "post_attention_layernorm.weight": lay["mlp_norm"][i]})
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = params["out"].T
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def hf_config_json(cfg) -> dict:
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+            "intermediate_size": cfg.hidden_dim,
+            "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads,
+            "max_position_embeddings": cfg.max_seq_len,
+            "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "torch_dtype": str(cfg.dtype).split(".")[-1]}
+
+
+def greedy_replies(torch, cfg, params, prompts, max_tokens):
+    """A fresh engine's greedy tokens for each prompt, one at a time, the
+    launches it made and its forwards (a stopped engine is returned)."""
+    from ray_tpu_torch.serve.llm import LLMEngine, SamplingParams
+
+    engine = LLMEngine(cfg, params, max_batch_size=4, max_seq_len=2048,
+                       decode_steps=4, device="cuda")
+    # Only the buckets these prompts use (up to 64 tokens).
+    engine.warmup(max(len(p) for p in prompts))
+    zero_counts()
+    m0 = engine.metrics()
+    replies = [engine.generate(p, SamplingParams(max_tokens=max_tokens))
+               for p in prompts]
+    launches = read_counts()
+    m1 = engine.metrics()
+    engine.stop()
+    return replies, launches, check_launches("hf", cfg, launches, m0, m1)
+
+
+def hf(torch, seed, smi):
+    """Llama-3.2-1B at full width and depth, random weights from ``seed``,
+    written as an HF checkpoint directory (config.json, model.safetensors,
+    tied embeddings) by write_safetensors, loaded by
+    load_llama_from_hf on the card: every leaf must equal the original's
+    bits, and an engine on the loaded weights must answer 4 greedy
+    requests with the tokens of an engine on the original weights."""
+    import tempfile
+
+    from ray_tpu_torch.models.hf import load_llama_from_hf
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.llama3_1b()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed + 9),
+                         "cuda")
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="hf-", dir=build) as ckpt:
+        t0 = time.perf_counter()
+        nbytes = write_safetensors(os.path.join(ckpt, "model.safetensors"),
+                                   hf_state_dict(params, cfg))
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(hf_config_json(cfg), f)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded_cfg, loaded = load_llama_from_hf(ckpt, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    want = dict(named_leaves(params))
+    got = dict(named_leaves(loaded))
+    unequal = sorted(n for n in want if n not in got or not torch.equal(
+        got[n].view(torch.int16), want[n].view(torch.int16)))
+    rng = np.random.default_rng(seed + 9)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(20, 65, 4)]
+    max_tokens = 16
+    replies, launches, forwards = greedy_replies(torch, loaded_cfg, loaded,
+                                                 prompts, max_tokens)
+    del loaded
+    original, _, _ = greedy_replies(torch, cfg, params, prompts, max_tokens)
+    row = {"phase": "hf", "model": "llama3_1b (random weights, seed "
+           f"{seed + 9}) as an HF checkpoint", "file_bytes": nbytes,
+           "write_s": write_s, "load_s": load_s,
+           "load_gb_per_s": nbytes / load_s / 1e9,
+           "load": "load_llama_from_hf(dir, device='cuda'): config.json, "
+                   "the safetensors header, then each tensor from the page "
+                   "cache (the file was just written) to the card",
+           "config_equal": loaded_cfg == cfg, "leaves": len(want),
+           "leaves_not_bit_equal": unequal,
+           "prompt_lengths": [len(p) for p in prompts],
+           "max_tokens": max_tokens, "replies_equal": [
+               a == b for a, b in zip(replies, original)],
+           "forwards": forwards, "launches": launches, "card": smi}
+    emit(row)
+    check(loaded_cfg == cfg, f"hf: loaded config {loaded_cfg} != {cfg}")
+    check(not unequal and set(got) == set(want),
+          f"hf: leaves not equal to the original bit for bit: {unequal}")
+    check(replies == original,
+          f"hf: greedy tokens on the loaded weights {replies} != on the "
+          f"original {original}")
+    check(all(len(r) == max_tokens for r in replies),
+          f"hf: reply lengths {[len(r) for r in replies]}")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1666,12 +2155,17 @@ def main(argv=None) -> int:
     phase("grads", grads_check)
     trained = phase("train", train, smi)
     phase("memory", memory, smi)
+    moe_trained = phase("moe", moe, smi)
+    phase("moe_grads", moe_grads)
+    loaded = phase("hf", hf, smi)
     emit({"phase": "seconds", "seconds": seconds})
 
     def entry(name, source, replaces, row, *others):
         by_path = {"serve": served["launches"][name],
                    "prefix": prefixed[name], "models": multiplexed[name],
-                   "train": trained["launches"][name]}
+                   "train": trained["launches"][name],
+                   "moe": moe_trained["launches"][name],
+                   "hf": loaded["launches"][name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -1688,9 +2182,13 @@ def main(argv=None) -> int:
 
     rms8 = rms_rows[0]  # bf16, 8 rows: the decode step's shape
     rms8192 = rms_rows[3]  # bf16, 8192 rows: the train step's shape
-    dq, dkv = (next(r for r in bwd_rows if r["kernel"] == k
-                    and r["case"] == "train b4 s2048")
-               for k in ("flash_bwd_dq", "flash_bwd_dkv"))
+    rms_moe = rms_rows[-1]  # bf16, 4096 x 4096: the MoE phase's shape
+
+    def bwd_row(kernel, label):
+        return next(r for r in bwd_rows if r["kernel"] == kernel
+                    and r["case"] == label)
+
+    moe_case = "mixtral train b2 s2048 d128"
     kernels = [
         # The train step's shape, on the tensor-core kernel; decode (the
         # 8-row kernel), a 2048-token prefill and a prefix hit's 4-token
@@ -1699,13 +2197,18 @@ def main(argv=None) -> int:
               "ray_tpu/ops/attention.py:56", fwd_row("train b4 s2048"),
               fwd_row("decode 8 slots"),
               fwd_row("prefill bucket 2048 offset 0"),
-              fwd_row("prefix tail bucket 4 offset 1024")),
+              fwd_row("prefix tail bucket 4 offset 1024"),
+              fwd_row(moe_case)),
         entry("rms_norm", "ray_tpu_torch/csrc/rms_norm.cu",
-              "ray_tpu/ops/norms.py:44", rms8, rms8192),
+              "ray_tpu/ops/norms.py:44", rms8, rms8192, rms_moe),
         entry("flash_bwd_dq", "ray_tpu_torch/csrc/flash_bwd.cu",
-              "ray_tpu/ops/attention.py:330", dq),
+              "ray_tpu/ops/attention.py:330",
+              bwd_row("flash_bwd_dq", "train b4 s2048"),
+              bwd_row("flash_bwd_dq", moe_case)),
         entry("flash_bwd_dkv", "ray_tpu_torch/csrc/flash_bwd.cu",
-              "ray_tpu/ops/attention.py:237", dkv)]
+              "ray_tpu/ops/attention.py:237",
+              bwd_row("flash_bwd_dkv", "train b4 s2048"),
+              bwd_row("flash_bwd_dkv", moe_case))]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
     print(smi, flush=True)

@@ -203,23 +203,32 @@ def params_from_jax(np_params: Dict[str, Any], cfg: LlamaConfig,
     as leaves) into the port: same keys, same layout, ``cfg.dtype`` on
     ``device``. Raises on a missing key or a shape that ``cfg`` does not
     give."""
-    device = resolve_device(device)
+    return tree_from_jax(np_params, param_shapes(cfg), cfg.dtype,
+                         resolve_device(device), "params_from_jax")
+
+
+def tree_from_jax(np_params, shapes, dtype, device: torch.device,
+                  what: str) -> Dict[str, Any]:
+    """``np_params`` (nested dicts, numpy leaves) as tensors of ``dtype``
+    on ``device``, checked against ``shapes`` (the same nesting, shape
+    tuples as leaves). Raises on a missing key or another shape; ``what``
+    names the caller in the message."""
 
     def convert(tree, shapes, path):
         if isinstance(shapes, dict):
             missing = set(shapes) - set(tree)
             if missing:
-                raise KeyError(f"params_from_jax: missing {sorted(missing)} "
+                raise KeyError(f"{what}: missing {sorted(missing)} "
                                f"at {path or 'top level'}")
             return {k: convert(tree[k], shapes[k], f"{path}/{k}")
                     for k in shapes}
         arr = np.asarray(tree)
         if tuple(arr.shape) != tuple(shapes):
-            raise ValueError(f"params_from_jax: {path} has shape "
+            raise ValueError(f"{what}: {path} has shape "
                              f"{arr.shape}, config gives {shapes}")
-        return _to_tensor(arr, cfg.dtype, device)
+        return _to_tensor(arr, dtype, device)
 
-    return convert(np_params, param_shapes(cfg), "")
+    return convert(np_params, shapes, "")
 
 
 @functools.lru_cache(maxsize=8)

@@ -9,8 +9,8 @@ package's optax chain written out in torch, with optax's arithmetic:
     add_decayed_weights(weight_decay, mask=ndim > 1)
     scale_by_learning_rate(schedule)
 
-Parameters, gradients and moments are nested dicts of tensors shaped
-like the parameters (the ``llama`` layout). The step updates parameters
+Parameters, gradients and moments are nested dicts (and lists) of
+tensors shaped like the parameters (the ``llama`` layout). The step updates parameters
 and moments in place, the counterpart of the JAX step's ``donate``: the
 state passed in is the state returned.
 """
@@ -31,14 +31,20 @@ class TrainState(NamedTuple):
 
 
 def _leaves(tree) -> List[torch.Tensor]:
+    """A tree's tensors in order; a tree nests dicts and lists (the MLP's
+    parameters are a list of dicts), as JAX's pytrees do."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in _leaves(v)]
     return [tree]
 
 
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
     return fn(tree)
 
 

@@ -218,13 +218,21 @@ class LLMEngine:
         return (f"{model}|{c.n_layers}x{c.dim}x{c.n_kv_heads}x"
                 f"{c.max_seq_len}|{self.block_tokens}")
 
-    def warmup(self, max_prompt_len: Optional[int] = None) -> float:
+    def warmup(self, max_prompt_len: Optional[int] = None,
+               concurrent: bool = True) -> float:
         """Build the kernels and run every serving shape once before the
         first request: prefill at each power-of-two bucket up to
         ``max_prompt_len`` (default ``max_seq_len``), the admission
         sampler and one decode block. Must run before :meth:`start`.
         Returns the wall seconds spent. Warmup writes KV into slot 0;
-        every slot's length stays 0, so all still read as empty."""
+        every slot's length stays 0, so all still read as empty.
+
+        ``concurrent`` is accepted for the JAX engine's signature and has
+        no effect: that engine compiles one program per bucket (on a
+        thread pool unless ``concurrent=False``); here nothing is
+        compiled per bucket, and ``_build.build_all`` builds the kernels
+        once."""
+        del concurrent
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError("warmup() must run before the engine loop "
                                "starts")
@@ -782,6 +790,17 @@ class LLMDeployment:
             # caller's retry is warm.
             raise ModelSwapDeadlineError(model, took,
                                          self.model_swap_deadline_s)
+
+    def check_health(self):
+        """Raise when the engine loop has died while it should run (an
+        exception in the loop, which then retires nothing); the JAX
+        deployment's health check. An engine that was never started or
+        was stopped on purpose passes."""
+        engine = self.engine
+        if engine._running.is_set() and engine._thread is not None \
+                and not engine.running():
+            raise RuntimeError("LLMDeployment: the engine loop died; "
+                               "its requests are not served")
 
     def __call__(self, request: Dict[str, Any]):
         t0 = time.perf_counter()

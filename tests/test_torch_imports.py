@@ -47,6 +47,29 @@ def test_fresh_interpreter_loads_no_jax_and_no_ray_tpu():
     assert lines["BAD"] == "[]"
 
 
+_IMPORT_MODELS = r"""
+import sys
+import ray_tpu_torch.models.hf, ray_tpu_torch.models.mlp
+import ray_tpu_torch.models.moe
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "ray_tpu", "transformers",
+                                    "safetensors"))
+print("BAD", bad)
+"""
+
+
+def test_new_models_load_no_jax_ray_tpu_transformers_or_safetensors():
+    """The MoE, HF and MLP modules stand alone: a fresh interpreter that
+    imports them has loaded none of jax, ray_tpu, transformers or
+    safetensors (the HF loader reads safetensors files itself)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_MODELS], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "BAD []"
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|ray_tpu)(?:\.|\s|,|$)", re.M)
 
@@ -79,6 +102,30 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  for k, v in params.items()}
     with pytest.raises(RuntimeError, match="CUDA"):
         llama.params_from_jax(np_params, cfg)
+
+
+def test_new_model_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from ray_tpu_torch.models import hf, llama, mlp, moe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = torch.Generator().manual_seed(0)
+    mcfg = moe.MoEConfig.debug_moe()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe.init_moe_params(mcfg, g)
+    params = moe.init_moe_params(mcfg, g, "cpu")
+    np_params = {k: v.numpy() if isinstance(v, torch.Tensor) else
+                 {n: t.numpy() for n, t in v.items()}
+                 for k, v in params.items()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe.moe_params_from_jax(np_params, mcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mlp.mlp_init(mlp.MLPConfig(), g)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mlp.mlp_params_from_jax([], mlp.MLPConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hf.load_llama_from_hf(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hf.params_from_hf_state_dict({}, llama.LlamaConfig.debug())
 
 
 def test_cpu_path_leaves_launch_counts_at_zero():

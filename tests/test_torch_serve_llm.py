@@ -216,3 +216,69 @@ def test_engine_on_cpu_runs_no_kernel(model):
     engine.stop()
     assert (flash_attention_fwd.launches, rms_norm.launches) == before
     assert isinstance(engine.cache["k"], torch.Tensor)
+
+
+# -- check_health and warmup(concurrent=...), the JAX deployment's API ------
+
+
+def _wait_for(cond, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and not cond():
+        time.sleep(0.005)
+    return cond()
+
+
+# The engine thread's exception is the point of the test.
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_check_health_fails_when_the_engine_loop_dies(model, monkeypatch):
+    """A prefill that raises kills the engine loop while it should run:
+    check_health then raises (the JAX deployment's health ping would
+    fail), where before it passed."""
+    cfg, params, _ = model
+    dep = LLMDeployment(cfg, lambda: params, max_batch_size=2,
+                        max_seq_len=_PAD, warmup=False, device="cpu")
+    try:
+        dep.check_health()  # a live loop
+
+        def broken(*args, **kwargs):
+            raise RuntimeError("prefill failed")
+
+        monkeypatch.setattr(dep.engine, "_prefill", broken)
+        # Not read: the loop dies before its first token.
+        dep.engine.generate([1, 2, 3], SamplingParams(max_tokens=2),
+                            stream=True)
+        assert _wait_for(lambda: not dep.engine.running())
+        with pytest.raises(RuntimeError, match="engine loop died"):
+            dep.check_health()
+    finally:
+        dep.engine.stop()
+    dep.check_health()  # stopped on purpose: healthy again
+
+
+def test_check_health_passes_for_a_stopped_or_unstarted_engine(model):
+    cfg, params, naive_greedy = model
+    dep = LLMDeployment(cfg, lambda: params, max_batch_size=2,
+                        max_seq_len=_PAD, warmup=False, device="cpu")
+    assert dep({"prompt_ids": [3, 17], "max_tokens": 2})["tokens"] \
+        == naive_greedy([3, 17], 2)
+    dep.check_health()
+    dep.engine.stop()
+    assert not dep.engine.running()
+    dep.check_health()
+
+
+@pytest.mark.parametrize("concurrent", [True, False])
+def test_warmup_takes_concurrent(model, concurrent):
+    """warmup(max_prompt_len, concurrent) has the JAX engine's signature;
+    ``concurrent`` changes nothing here, and the engine then serves the
+    JAX naive greedy tokens."""
+    cfg, params, naive_greedy = model
+    engine = _engine(cfg, params, max_batch_size=2)
+    assert engine.warmup(8, concurrent=concurrent) >= 0.0
+    assert engine.warmup(max_prompt_len=4, concurrent=concurrent) >= 0.0
+    try:
+        assert engine.generate([4, 2, 9], SamplingParams(max_tokens=4)) \
+            == naive_greedy([4, 2, 9], 4)
+    finally:
+        engine.stop()
