@@ -48,15 +48,28 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              deployment's, a model must get no hit from the other's
              blocks, and each alternation must swap once; prints the
              swap ms.
-8. logits  — one prompt's prefill and 4 decode steps of the 1B model cut
+8. serve_http — Llama-3.2-1B served over HTTP by the port's own
+             runtime (ray_tpu_torch.init, serve.run of LLMDeployment with
+             num_gpus 1, the HTTP proxy, the serve phase's settings).
+             Checks that init counts the card as "GPU", that 4 greedy
+             requests sent one at a time equal a direct in-process
+             LLMDeployment of the same seed (built, used and freed
+             first), that 12 concurrent requests (8 unary, 4 SSE) each
+             return 32 tokens, that a shared 512-token head hits the
+             prefix cache, that a traced request records the llm.*
+             stages, the launches, and that the card's memory is back
+             to where it was; prints requests/s, tokens/s, HTTP and
+             direct TTFT p50 and the per-request overhead of proxy,
+             router and replica.
+9. logits  — one prompt's prefill and 4 decode steps of the 1B model cut
              to 2 layers, on the card (bf16, kernels) against the CPU
              (f32, plain versions).
-9. grads   — loss_fn and the gradient of every parameter of the 1B model
+10. grads   — loss_fn and the gradient of every parameter of the 1B model
              cut to 2 layers, on the card (bf16, kernels) against the CPU
              (f32, plain versions), each leaf held to its own limit; and
              the same on the card with remat="gate" against remat=False
              on the card, to 1e-6 of each leaf (the same bf16 ops).
-10. train  — three AdamW steps of Llama-3.2-1B at full width and depth at
+11. train  — three AdamW steps of Llama-3.2-1B at full width and depth at
              bench.py's configuration (remat="gate", batch 4 x 2048
              tokens, bf16 moments, fused CE; one fixed random batch)
              through make_train_step; checks finite, falling loss and the
@@ -64,7 +77,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              per layer: it is saved across the checkpoint, not rerun);
              prints step time, tokens/s, peak memory, and a profiled
              fourth step's top kernels.
-11. memory — at each of remat=False, True, "gate" and "mlp": the peak
+12. memory — at each of remat=False, True, "gate" and "mlp": the peak
              memory of the forward and backward alone, then of two whole
              steps, each from a fresh reset, beside plan_llama's
              prediction and their ratio; the second step's time and a
@@ -74,7 +87,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              in the order False > "mlp" > "gate" > True, each within
              0.8-1.25 of the plan, and every checkpointing mode's
              whole-step peak below remat=False's.
-12. moe    — MoEConfig.mixtral_8x7b() at full width (dim 4096, 32/8
+13. moe    — MoEConfig.mixtral_8x7b() at full width (dim 4096, 32/8
              heads x 128, hidden 14336, 8 experts, top-2, vocab 32000)
              cut to 2 layers, remat=True: three AdamW steps (bf16
              moments) through make_train_step and moe_loss_fn on one
@@ -85,12 +98,12 @@ Run from the root of a checkout. Phases, each printing one JSON line:
              time, tokens/s, model TFLOP/s against the 989 TFLOP/s bf16
              peak, peak memory and a profiled fourth step. Then three
              steps of MLPConfig(), whose loss must fall.
-13. moe_grads — the MoE cut in width (dim 1024, 8/2 heads x 128, hidden
+14. moe_grads — the MoE cut in width (dim 1024, 8/2 heads x 128, hidden
              3584, 2 layers), 1 x 256 tokens: logits, aux loss, loss and
              every leaf's gradient on the card (bf16, kernels) against
              the CPU (f32, plain versions), near-tie routing counted and
              its tokens left out of the logits' comparison.
-14. hf     — Llama-3.2-1B (full width and depth) written as an HF
+15. hf     — Llama-3.2-1B (full width and depth) written as an HF
              checkpoint directory (config.json, model.safetensors) and
              loaded by load_llama_from_hf on the card: every leaf equal
              bit for bit, 4 greedy requests answered with the tokens of
@@ -1202,7 +1215,7 @@ def models(torch, seed, smi):
     kv1 = m1["kv_cache"]
     cross = {"hits": kv1["hits"] - kv0["hits"],
              "misses": kv1["misses"] - kv0["misses"]}
-    weights = {name: dep._load_model(name) for name in ("a", "b")}
+    weights = {name: dep._load_model(name, "deploy") for name in ("a", "b")}
     del dep
     torch.cuda.empty_cache()
     alone = [None] * len(sequence)
@@ -1240,7 +1253,411 @@ def models(torch, seed, smi):
     return launches
 
 
-# -- phase 8: end-to-end logits against the CPU -------------------------------
+# -- phase 8: the serve runtime over HTTP ---------------------------------------
+
+# Replica supervision while the 1B replica builds and warms up: the
+# defaults (a 2 s ping timeout, 2 strikes) could strike it mid-warmup.
+SERVE_HTTP_HEALTH = {"serve_replica_health_timeout_s": 60.0,
+                     "serve_replica_health_failures": 30}
+# What may stay allocated after a deployment is freed: cuBLAS keeps a
+# workspace per thread that ran a GEMM (~32 MiB each on this card), and
+# the engine's threads are new. A leaked 1B engine holds ~3 GB.
+SERVE_HTTP_SLACK = 256 << 20
+# Rounds of the serial legs (4 prompts each, SSE then unary, direct and
+# over HTTP) and bursts of 12 concurrent requests: one reading of each
+# did not repeat between calls.
+SERVE_HTTP_ROUNDS = 3
+SERVE_HTTP_BURSTS = 3
+SERVE_HTTP_STAGES = ("llm.admit", "llm.kv_lookup", "llm.prefill",
+                     "llm.first_token", "llm.decode")
+
+
+def llm_replicas(cls):
+    """The user objects of this process's live replicas that are ``cls``.
+    The runtime is in-process: a replica actor is an object in this
+    process, so the engine behind the HTTP proxy is reachable here (its
+    metrics, its loop), and the kernels' launch counters, which are
+    process-wide, count the replica's launches."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    out = []
+    for actor in list(global_worker().backend._actors.values()):
+        user = getattr(getattr(actor, "instance", None), "callable", None)
+        if isinstance(user, cls):
+            out.append(user)
+    return out
+
+
+def sse_request(conn, body, headers=()):
+    """POST ``body`` with stream=True; (status, tokens, seconds to the
+    first token, seconds to the end) as the client sees them."""
+    t0 = time.perf_counter()
+    conn.request("POST", "/llm", body=json.dumps(dict(body, stream=True)),
+                 headers={"Content-Type": "application/json",
+                          **dict(headers)})
+    resp = conn.getresponse()
+    toks, buf, first = [], b"", None
+    while resp.status == 200:
+        chunk = resp.read1(65536)
+        if not chunk:
+            break
+        buf += chunk
+        while b"\n\n" in buf:
+            event, buf = buf.split(b"\n\n", 1)
+            data = event[len(b"data: "):]
+            if event.startswith(b"data: ") and data != b"[DONE]":
+                if first is None:
+                    first = time.perf_counter() - t0
+                toks.append(json.loads(data)["token"])
+    resp.read()
+    return resp.status, toks, first, time.perf_counter() - t0
+
+
+def unary_request(conn, body):
+    t0 = time.perf_counter()
+    conn.request("POST", "/llm", body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    raw = resp.read()
+    reply = json.loads(raw) if resp.status == 200 else {}
+    return (resp.status, reply.get("tokens", []), reply.get("ttft_s"),
+            time.perf_counter() - t0)
+
+
+def http_client_main(spec):
+    """The HTTP client of the serve_http phase, run in a process of its
+    own (``python3 chip_smoke.py --http-client SPEC``), so that its
+    parsing does not share the server's interpreter lock. ``spec``:
+    ``{"host", "port", "requests": [[body, "sse" | "unary"], ...],
+    "concurrent": bool}``. Returns one [status, tokens, seconds to the
+    first token (SSE: the client's; unary: the replica's ttft_s),
+    seconds to the end] per request, and the wall seconds."""
+    import http.client
+
+    def one(req):
+        body, kind = req
+        conn = http.client.HTTPConnection(spec["host"], spec["port"],
+                                          timeout=600)
+        try:
+            return (sse_request(conn, body) if kind == "sse"
+                    else unary_request(conn, body))
+        finally:
+            conn.close()
+
+    out = [None] * len(spec["requests"])
+
+    def run(i):
+        out[i] = one(spec["requests"][i])
+
+    t0 = time.perf_counter()
+    if spec["concurrent"]:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(out))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    else:
+        for i in range(len(out)):
+            run(i)
+    return {"results": out, "wall_s": time.perf_counter() - t0}
+
+
+def http_client(proxy, requests, concurrent=False):
+    """Run ``requests`` through :func:`http_client_main` in a child
+    process; its parsed reply."""
+    spec = json.dumps({"host": proxy.host, "port": proxy.port,
+                       "requests": requests, "concurrent": concurrent})
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--http-client",
+         spec], capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0, f"serve_http: the client failed: "
+                               f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def serve_http(torch, seed, smi):
+    """Llama-3.2-1B served over HTTP by the port's own runtime:
+    ray_tpu_torch.init, serve.run of LLMDeployment with num_gpus 1, and
+    the HTTP proxy (proxy -> router -> replica actor -> LLMDeployment ->
+    LLMEngine -> the kernels). A direct in-process LLMDeployment of the
+    same seed is built, used and freed first; the 4 greedy requests sent
+    one at a time over HTTP (SSE, then unary; SERVE_HTTP_ROUNDS rounds,
+    as the direct leg) must equal its replies token for token. Then
+    SERVE_HTTP_BURSTS bursts of 12 concurrent requests (8 unary, 4 SSE),
+    a shared-head pair (the second must hit the first's blocks) and a
+    traced request (its llm.* stages must be recorded). A plain
+    serve.shutdown() must stop the replica's engine and give the card's
+    memory back while the runtime is still up."""
+    import gc
+    import http.client
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rserve
+    from ray_tpu_torch._private import critical_path, perf_stats
+    from ray_tpu_torch._private.config import ray_config
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    cfg = LlamaConfig.llama3_1b()
+    # The serve phase's settings; the prefix cache is on (ray_config).
+    kw = dict(max_batch_size=8, max_seq_len=2048, decode_steps=4,
+              warmup_max_prompt_len=1024, device="cuda")
+    max_tokens, block = 32, ray_config.llm_kv_block_tokens
+
+    # A seeded builder, not weights: the controller pickles the
+    # deployment's arguments into its checkpoint on every change.
+    def params_fn():
+        return init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                           "cuda")
+
+    rng = np.random.default_rng(seed + 8)
+    greedy = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+              for n in rng.integers(16, 1001, 4)]
+    burst = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+             for n in rng.integers(16, 1001, 12)]
+    head = rng.integers(0, cfg.vocab_size, 512).tolist()
+    pair = [head + rng.integers(0, cfg.vocab_size, 20).tolist()
+            for _ in range(3)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+
+    # The direct leg: the same deployment in this thread, no runtime.
+    # Each round: [tokens, seconds to the first token, seconds] per
+    # prompt, SSE (streamed) then unary, as the HTTP client returns.
+    dep = LLMDeployment(cfg, params_fn, **kw)
+    direct = []
+    for _ in range(SERVE_HTTP_ROUNDS):
+        sse, unary = [], []
+        for p in greedy:
+            t0 = time.perf_counter()
+            toks, first = [], None
+            for item in dep({"prompt_ids": p, "max_tokens": max_tokens,
+                             "stream": True}):
+                first = first or time.perf_counter() - t0
+                toks.append(item["token"])
+            sse.append((toks, first, time.perf_counter() - t0))
+        for p in greedy:
+            t0 = time.perf_counter()
+            reply = dep({"prompt_ids": p, "max_tokens": max_tokens})
+            unary.append((reply["tokens"], reply["ttft_s"],
+                          time.perf_counter() - t0))
+        direct.append((sse, unary))
+    dep.stop()
+    del dep
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base_bytes
+    check(left <= SERVE_HTTP_SLACK,
+          f"serve_http: {left} bytes still allocated after the direct "
+          f"deployment")
+
+    saved = {k: getattr(ray_config, k) for k in SERVE_HTTP_HEALTH}
+    for k, v in SERVE_HTTP_HEALTH.items():
+        setattr(ray_config, k, v)
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init()
+    engine = None
+    try:
+        resources = ray_tpu_torch.cluster_resources()
+        check(resources.get("GPU") == torch.cuda.device_count(),
+              f"serve_http: cluster_resources {resources}, "
+              f"{torch.cuda.device_count()} CUDA device(s)")
+        t0 = time.perf_counter()
+        rserve.run(rserve.deployment(
+            LLMDeployment, ray_actor_options={"num_gpus": 1}).bind(
+                cfg, params_fn, **kw), route_prefix="/llm")
+        proxy = rserve.start_http_proxy()
+        # serve.run returns once the replica actor is started; its
+        # constructor (the weights, the warmup) runs on after that.
+        deadline = time.monotonic() + 600
+        while not llm_replicas(LLMDeployment) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        deploy_s = time.perf_counter() - t0
+        replicas = llm_replicas(LLMDeployment)
+        check(len(replicas) == 1,
+              f"serve_http: {len(replicas)} LLM replicas, expected 1")
+        engine = replicas[0].engine
+        check(engine.cache["k"].device.type == "cuda",
+              f"serve_http: the replica's KV cache is on "
+              f"{engine.cache['k'].device}")
+
+        # The main path's run: the counts are process-wide, and the
+        # replica runs in this process, so they see its launches.
+        zero_counts()
+        m0 = engine.metrics()
+
+        def bodies(prompts, kind):
+            return [[{"prompt_ids": p, "max_tokens": max_tokens}, kind]
+                    for p in prompts]
+
+        # Each round as the direct leg's: [status, tokens, seconds to
+        # the first token, seconds] per prompt, SSE then unary.
+        over_http = []
+        for _ in range(SERVE_HTTP_ROUNDS):
+            out = http_client(proxy, bodies(greedy, "sse")
+                              + bodies(greedy, "unary"))["results"]
+            over_http.append((out[:len(greedy)], out[len(greedy):]))
+        bursts = [http_client(proxy, bodies(burst[:8], "unary")
+                              + bodies(burst[8:], "sse"), concurrent=True)
+                  for _ in range(SERVE_HTTP_BURSTS)]
+        conn = http.client.HTTPConnection(proxy.host, proxy.port,
+                                          timeout=600)
+
+        hits = perf_stats.counter("llm_kv_cache_hits")
+        sse_request(conn, {"prompt_ids": pair[0], "max_tokens": 4})
+        h0 = hits.value
+        sse_request(conn, {"prompt_ids": pair[1], "max_tokens": 4})
+        pair_hits = hits.value - h0
+
+        # A traced request: every stage is recorded, however short.
+        min_span, critical_path.MIN_SPAN_S = critical_path.MIN_SPAN_S, 0.0
+        try:
+            traced = sse_request(conn, {"prompt_ids": pair[2],
+                                        "max_tokens": max_tokens},
+                                 {"X-Trace-Id": "chip-smoke-trace"})
+            deadline = time.monotonic() + 30
+            waterfall = None
+            while waterfall is None and time.monotonic() < deadline:
+                waterfall = next((w for w in
+                                  critical_path.finished_waterfalls()
+                                  if w["trace_id"] == "chip-smoke-trace"),
+                                 None)
+                time.sleep(0.01)
+        finally:
+            critical_path.MIN_SPAN_S = min_span
+        conn.close()
+        launches = read_counts()
+        m1 = engine.metrics()
+    finally:
+        # A plain serve.shutdown(): the replica stops its LLMDeployment
+        # (the engine loop) and lets go of it, so the weights and the KV
+        # cache leave the card while the runtime is still up.
+        replicas = None
+        rserve.shutdown()
+        engine_stopped = engine is None or not engine.running()
+        engine = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base_bytes
+        ray_tpu_torch.shutdown()
+        for k, v in saved.items():
+            setattr(ray_config, k, v)
+
+    want = [toks for toks, _, _ in direct[0][0]]
+    for r, (sse, unary) in enumerate(direct):
+        for kind, replies in (("SSE", sse), ("unary", unary)):
+            check([toks for toks, _, _ in replies] == want,
+                  f"serve_http: direct round {r} ({kind}) differs from "
+                  f"the first round's streamed replies")
+    for r, legs in enumerate(over_http):
+        for kind, replies in zip(("SSE", "unary"), legs):
+            for i, ((status, toks, _, _), w) in enumerate(
+                    zip(replies, want)):
+                check(status == 200 and toks == w,
+                      f"serve_http: round {r}, greedy request {i} over "
+                      f"HTTP ({kind}, {status}) differs from the direct "
+                      f"deployment: {toks} != {w}")
+    for b, run in enumerate(bursts):
+        for i, r in enumerate(run["results"]):
+            check(r is not None and r[0] == 200
+                  and len(r[1]) == max_tokens
+                  and all(0 <= t < cfg.vocab_size for t in r[1]),
+                  f"serve_http: burst {b}, concurrent request {i}: "
+                  f"{r and r[:2]}")
+    check(traced[0] == 200 and len(traced[1]) == max_tokens,
+          f"serve_http: traced request {traced[:2]}")
+    check(pair_hits >= len(head) // block,
+          f"serve_http: the shared head's second request hit "
+          f"{pair_hits} blocks, expected >= {len(head) // block}")
+    stages = {s["stage"]: s["dur_s"] for s in
+              (waterfall or {}).get("stages", [])}
+    check(set(SERVE_HTTP_STAGES) <= set(stages),
+          f"serve_http: traced request's stages {sorted(stages)}")
+    forwards = check_launches("serve_http", cfg, launches, m0, m1)
+    check(engine_stopped,
+          "serve_http: the replica's engine loop runs on after "
+          "serve.shutdown()")
+    check(left <= SERVE_HTTP_SLACK,
+          f"serve_http: {left} bytes still allocated after "
+          f"serve.shutdown()")
+
+    def p50(xs):
+        return statistics.median(xs)
+
+    # Per leg (SSE, unary): per round, each request's HTTP latency minus
+    # the direct leg's for the same prompt in the same round; TTFT
+    # (SSE: the time to the first event, the client's over HTTP; unary:
+    # the replica's ttft_s).
+    legs = {}
+    for j, kind in enumerate(("sse", "unary")):
+        overhead = [[(h[3] - d[2]) * 1e3
+                     for h, d in zip(http[j], dct[j])]
+                    for http, dct in zip(over_http, direct)]
+        legs[kind] = {
+            "overhead_ms_per_round": overhead,
+            "overhead_ms_p50_per_round": [p50(o) for o in overhead],
+            "overhead_ms_p50": p50([x for o in overhead for x in o]),
+            "ttft_p50_s_http": p50([h[2] for http in over_http
+                                    for h in http[j]]),
+            "ttft_p50_s_direct": p50([d[1] for dct in direct
+                                      for d in dct[j]]),
+            "latency_s_http": [[h[3] for h in http[j]]
+                               for http in over_http],
+            "latency_s_direct": [[d[2] for d in dct[j]]
+                                 for dct in direct]}
+    per_burst = []
+    for run in bursts:
+        res, wall = run["results"], run["wall_s"]
+        per_burst.append({
+            "wall_s": wall, "requests_per_s": len(res) / wall,
+            "tokens_per_s": sum(len(r[1]) for r in res) / wall,
+            "ttft_p50_s_unary": p50([r[2] for r in res[:8]]),
+            "ttft_p50_s_sse": p50([r[2] for r in res[8:]])})
+    row = {"phase": "serve_http", "model": "llama3_1b",
+           "layers": cfg.n_layers, "dim": cfg.dim,
+           "slots": kw["max_batch_size"], "max_seq_len": kw["max_seq_len"],
+           "decode_steps": kw["decode_steps"], "max_tokens": max_tokens,
+           "cluster_resources": resources, "health_config": dict(
+               SERVE_HTTP_HEALTH), "deploy_s": deploy_s,
+           "greedy_prompt_lengths": [len(p) for p in greedy],
+           "greedy_equal_to_direct": True, "rounds": SERVE_HTTP_ROUNDS,
+           "sse": legs["sse"], "unary": legs["unary"],
+           "overhead_note": "HTTP latency minus the direct leg's for "
+                            "the same prompt in the same round; the "
+                            "client runs in a process of its own",
+           "ttft_note": "SSE: the time to the first event (the client's "
+                        "over HTTP); unary: the replica's ttft_s",
+           "burst": {"requests": len(burst), "unary": 8, "sse": 4,
+                     "prompt_lengths": [len(p) for p in burst],
+                     "per_burst": per_burst,
+                     "requests_per_s_p50": p50(
+                         [b["requests_per_s"] for b in per_burst]),
+                     "tokens_per_s_p50": p50(
+                         [b["tokens_per_s"] for b in per_burst]),
+                     "ttft_p50_s_unary": p50(
+                         [b["ttft_p50_s_unary"] for b in per_burst]),
+                     "ttft_p50_s_sse": p50(
+                         [b["ttft_p50_s_sse"] for b in per_burst])},
+           "left_bytes_after_serve_shutdown": left,
+           "shared_head": {"tokens": len(head), "hits": pair_hits},
+           "traced_stages_s": stages,
+           "traced_total_s": waterfall["total_s"],
+           "traced_unattributed_s": waterfall["unattributed_s"],
+           # The traced request's time outside the engine's stages: the
+           # proxy, the router, the replica and the stream's transport.
+           "traced_runtime_ms": (waterfall["total_s"] - sum(
+               v for k, v in stages.items() if k.startswith("llm.")))
+           * 1e3,
+           "forwards": forwards, "launches": launches,
+           "kv_cache": m1.get("kv_cache"), "card": smi}
+    emit(row)
+    return row
+
+
+# -- phase 9: end-to-end logits against the CPU -------------------------------
 
 
 def to_cpu(tree):
@@ -1308,7 +1725,7 @@ def logits_check(torch, seed):
     return row
 
 
-# -- phase 9: gradients against the CPU ---------------------------------------
+# -- phase 10: gradients against the CPU ---------------------------------------
 
 
 def named_leaves(tree, prefix=""):
@@ -1421,7 +1838,7 @@ def grads_check(torch, seed):
     return row
 
 
-# -- phase 10: training -------------------------------------------------------
+# -- phase 11: training -------------------------------------------------------
 
 
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -1524,7 +1941,7 @@ def train(torch, seed, smi):
     return row
 
 
-# -- phase 11: peak memory under each remat mode against the plan -------------
+# -- phase 12: peak memory under each remat mode against the plan -------------
 
 
 # The host's time per step is read at this many tokens (batch 1): the
@@ -1638,7 +2055,7 @@ def memory(torch, seed, smi):
     return row
 
 
-# -- phase 12: the MoE model at Mixtral-8x7B's width --------------------------
+# -- phase 13: the MoE model at Mixtral-8x7B's width --------------------------
 
 
 MOE_BATCH, MOE_SEQ, MOE_LAYERS = 2, 2048, 2
@@ -1767,7 +2184,7 @@ def mlp_train(torch, seed):
             "steps": records}
 
 
-# -- phase 13: the MoE model's logits, aux loss and gradients against the CPU --
+# -- phase 14: the MoE model's logits, aux loss and gradients against the CPU --
 
 
 # A token is a near tie where, in some layer, the CPU's (f32) router
@@ -1942,7 +2359,7 @@ def moe_grads(torch, seed):
     return row
 
 
-# -- phase 14: a Llama checkpoint in the HF layout, loaded and served ----------
+# -- phase 15: a Llama checkpoint in the HF layout, loaded and served ----------
 
 
 _SAFETENSORS_DTYPES = {"bfloat16": "BF16", "float16": "F16",
@@ -2104,7 +2521,12 @@ def hf(torch, seed, smi):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--http-client", metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.http_client:
+        emit(http_client_main(json.loads(args.http_client)))
+        return 0
 
     import torch
 
@@ -2151,6 +2573,7 @@ def main(argv=None) -> int:
     served = phase("serve", serve, smi)
     prefixed = phase("prefix", prefix, smi, time_ms)
     multiplexed = phase("models", models, smi)
+    served_http = phase("serve_http", serve_http, smi)
     phase("logits", logits_check)
     phase("grads", grads_check)
     trained = phase("train", train, smi)
@@ -2163,6 +2586,7 @@ def main(argv=None) -> int:
     def entry(name, source, replaces, row, *others):
         by_path = {"serve": served["launches"][name],
                    "prefix": prefixed[name], "models": multiplexed[name],
+                   "serve_http": served_http["launches"][name],
                    "train": trained["launches"][name],
                    "moe": moe_trained["launches"][name],
                    "hf": loaded["launches"][name]}

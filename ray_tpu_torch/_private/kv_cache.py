@@ -2,13 +2,10 @@
 refcounts, LRU eviction, and per-tenant byte charges.
 
 A copy of ``ray_tpu/_private/kv_cache.py`` (the port imports nothing of
-``ray_tpu``), with the same semantics, exceptions and hash bytes, and two
-cuts:
-
-- no ``sanitize_hooks`` taps: those gate the reference's rayspec and raymc
-  tools, which are not ported;
-- no ``perf_stats`` counters: they come with the serve runtime. The
-  ``hits``/``misses``/``evictions`` attributes and :meth:`stats` stay.
+``ray_tpu``), with the same semantics, exceptions, hash bytes and
+``perf_stats`` counters (``llm_kv_cache_{hits,misses,evictions,bytes}``),
+and one cut: no ``sanitize_hooks`` taps. Those gate the reference's
+rayspec and raymc tools, which are not ported.
 
 This is the *decision* half of a prefix cache: which blocks exist, who
 may read them, which block is evicted under pressure, and which tenant
@@ -42,6 +39,8 @@ import itertools
 import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from ray_tpu_torch._private import perf_stats
 
 
 def chunk_hash(parent: str, tokens: Sequence[int], seed: str = "") -> str:
@@ -119,6 +118,10 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self._c_hits = perf_stats.counter("llm_kv_cache_hits")
+        self._c_misses = perf_stats.counter("llm_kv_cache_misses")
+        self._c_evict = perf_stats.counter("llm_kv_cache_evictions")
+        self._c_bytes = perf_stats.counter("llm_kv_cache_bytes")
 
     # -- read path --------------------------------------------------------
 
@@ -139,6 +142,8 @@ class PrefixCache:
                 out.append(BlockHandle(key, block.block_id, i))
             self.hits += len(out)
             self.misses += len(chain) - len(out)
+        self._c_hits.inc(len(out))
+        self._c_misses.inc(len(chain) - len(out))
         return out
 
     def pin(self, handles: Sequence[BlockHandle]) -> None:
@@ -205,6 +210,9 @@ class PrefixCache:
                 self._charge[job] = self._charge.get(job, 0) + nbytes
                 created.append(BlockHandle(key, block.block_id, i))
             self.evictions += len(evicted)
+        delta = nbytes * len(created) - sum(e.nbytes for e in evicted)
+        self._c_bytes.inc(delta)
+        self._c_evict.inc(len(evicted))
         return created, evicted
 
     def evict(self, nbytes: int) -> List[EvictedBlock]:
@@ -220,6 +228,8 @@ class PrefixCache:
                 freed += victim.nbytes
                 out.append(victim)
             self.evictions += len(out)
+        self._c_bytes.inc(-sum(e.nbytes for e in out))
+        self._c_evict.inc(len(out))
         return out
 
     def _evict_one_locked(self) -> Optional[EvictedBlock]:

@@ -37,11 +37,19 @@ Multi-model: ``LLMDeployment(models={...})`` holds N weight sets for one
 engine; a request for another model drains the engine and swaps the
 weights (:meth:`LLMEngine.swap_params`), under a cold-start deadline.
 
+The cache and swap knobs default to ``ray_config`` (``llm_prefix_cache``,
+``llm_kv_block_tokens``, ``llm_prefix_cache_bytes``,
+``llm_model_swap_deadline_s``); a constructor argument other than None
+overrides it. The engine records the ``critical_path`` stages
+``llm.{admit,kv_lookup,prefill,first_token,decode}`` of a traced request,
+counts ``perf_stats`` ``llm_model_swaps`` and ``llm_model_swap_bytes``
+(the prefix cache counts its own hits, misses, evictions and bytes), and
+exports its hot prefix heads (:meth:`LLMEngine.prefix_digests`) for the
+router's cache-affinity routing.
+
 Not yet ported: the prefix cache's shm warm tier (it waits for the
 object plane; an evicted payload is dropped, as the JAX engine does with
-no plane), ``prefix_digests`` and cache-affinity routing, critical-path
-stages and ``perf_stats`` counters (they come with the serve runtime:
-proxy, router, controller).
+no plane).
 """
 
 from __future__ import annotations
@@ -57,6 +65,9 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import _build
+from ray_tpu_torch._private import critical_path
+from ray_tpu_torch._private import perf_stats
+from ray_tpu_torch._private.config import ray_config
 from ray_tpu_torch._private.kv_cache import PrefixCache, chain_keys
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
@@ -64,6 +75,7 @@ from ray_tpu_torch.models.llama import (
     init_kv_cache,
     resolve_device,
 )
+from ray_tpu_torch.models.training import _leaves
 
 
 class PromptTooLongError(ValueError):
@@ -125,9 +137,18 @@ class _Request:
     params: SamplingParams
     out_queue: "queue.Queue"
     tokens: List[int] = dataclasses.field(default_factory=list)
+    t_arrival: float = 0.0
+    t_first_token: Optional[float] = None
     model: Optional[str] = None
     priority: int = 1     # 0 interactive > 1 normal > 2 batch
     job: str = "default"  # the tenant charged for the prompt's KV blocks
+    # Critical-path attribution: the HTTP request's trace id (stamped
+    # at generate() from the calling task's ambient trace, "" outside
+    # any trace) plus the per-request stage marks the engine loop sets
+    # while the request crosses admit → kv-lookup → prefill → sample.
+    trace_id: str = ""
+    t_kv_done: float = 0.0
+    t_prefill_done: float = 0.0
 
 
 def _params_to(tree, device):
@@ -140,9 +161,10 @@ class LLMEngine:
     def __init__(self, cfg: LlamaConfig, params, *,
                  max_batch_size: int = 8, max_seq_len: Optional[int] = None,
                  decode_steps: int = 1, seed: int = 0,
-                 model: str = "default", prefix_cache: bool = True,
-                 kv_block_tokens: int = 16,
-                 prefix_cache_bytes: int = 256 << 20, device=None):
+                 model: str = "default",
+                 prefix_cache: Optional[bool] = None,
+                 kv_block_tokens: Optional[int] = None,
+                 prefix_cache_bytes: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _params_to(params, self.device)
@@ -192,7 +214,14 @@ class LLMEngine:
         # for pinning memory), one row [2 (k, v), L, block_tokens, Hkv,
         # D] per block the capacity holds. _kv_store maps each resident
         # block's generation id to its row: an evicted block's row is
-        # freed and its payload dropped.
+        # freed and its payload dropped. Knobs left None come from
+        # ray_config.
+        if prefix_cache is None:
+            prefix_cache = ray_config.llm_prefix_cache
+        if kv_block_tokens is None:
+            kv_block_tokens = ray_config.llm_kv_block_tokens
+        if prefix_cache_bytes is None:
+            prefix_cache_bytes = ray_config.llm_prefix_cache_bytes
         self.block_tokens = max(1, int(kv_block_tokens))
         k = self.cache["k"]
         per_token = 2 * k.numel() * k.element_size() \
@@ -396,7 +425,12 @@ class LLMEngine:
         req = _Request(
             request_id=next(self._req_counter), prompt=prompt,
             params=params or SamplingParams(), out_queue=queue.Queue(),
-            model=model, priority=max(0, min(2, int(priority))), job=job)
+            t_arrival=time.perf_counter(),
+            model=model, priority=max(0, min(2, int(priority))), job=job,
+            # Stamped on the CALLING thread (the replica's task context
+            # is thread-local; the engine loop below has none).
+            trace_id=(critical_path.ambient_trace_id() or "")
+            if critical_path.enabled() else "")
         with self._lock:
             # Checked with the count under one lock: swap_params cannot
             # change the weights between this check and the admission.
@@ -435,6 +469,11 @@ class LLMEngine:
     # -- engine loop -----------------------------------------------------
 
     def _loop(self):
+        if self.device.type == "cuda":
+            # The kernels launch from this thread, on its current device
+            # (per thread in CUDA and in torch): make that the device
+            # that holds the engine's tensors, whichever thread built it.
+            torch.cuda.set_device(self.cache["k"].device)
         while self._running.is_set():
             admitted = self._admit()
             if not self._active.any():
@@ -480,16 +519,24 @@ class LLMEngine:
                 continue
             slot = self._free_slots.pop()
             t_real = len(req.prompt)
+            # Stage: admit = time spent queued for a slot.
+            t_admit = time.perf_counter()
+            critical_path.record_stage(req.trace_id, "llm.admit",
+                                       t_admit - req.t_arrival)
             # Prefix-cache fast path: copy the matched KV blocks into the
             # slot, then prefill ONLY the tail, at the tail's bucket, from
             # the matched offset.
             m_tok, chain = self._prefix_copy_in(req, slot, req.prompt)
+            req.t_kv_done = time.perf_counter()
+            critical_path.record_stage(req.trace_id, "llm.kv_lookup",
+                                       req.t_kv_done - t_admit)
             tail = req.prompt[m_tok:]
             bucket = self._serve_bucket(len(tail))
             tokens = torch.zeros((1, bucket), dtype=torch.long)
             tokens[0, :len(tail)] = torch.tensor(tail)
             last = self._prefill(tokens.to(self.device), slot, len(tail),
                                  m_tok)
+            req.t_prefill_done = time.perf_counter()
             staged.append((req, slot, t_real, last, chain))
         for req in leftover:
             self._queue.put(req)
@@ -498,10 +545,24 @@ class LLMEngine:
         # ONE batched sampling call and ONE host sync for the whole wave.
         temps = np.array([s[0].params.temperature for s in staged],
                          np.float32)
+        t_sample = time.perf_counter()
         firsts = self._sample_admitted(
             torch.stack([s[3] for s in staged]), temps).cpu().numpy()
+        # The host sync above is where the wave's asynchronous prefills
+        # complete: its wait is split evenly over the wave's prefill
+        # stages, and the dispatch before it is the first-token stage,
+        # so the stages tile the wave's wall time.
+        now = time.perf_counter()
+        sync_share = (now - t_sample) / len(staged)
         for (req, slot, t_real, _, _), first in zip(staged, firsts):
+            critical_path.record_stage(
+                req.trace_id, "llm.prefill",
+                (req.t_prefill_done - req.t_kv_done) + sync_share)
+            critical_path.record_stage(
+                req.trace_id, "llm.first_token",
+                max(0.0, t_sample - req.t_prefill_done))
             first = int(first)
+            req.t_first_token = now
             req.tokens.append(first)
             req.out_queue.put(first)
             with self._lock:
@@ -572,6 +633,11 @@ class LLMEngine:
         ``_lock``."""
         req = self._slot_req.pop(slot, None)
         if req is not None:
+            if req.t_first_token is not None:
+                # Per-slot decode stage: first token → end of stream.
+                critical_path.record_stage(
+                    req.trace_id, "llm.decode",
+                    time.perf_counter() - req.t_first_token)
             self._unfinished -= 1
             req.out_queue.put(None)
         self._active[slot] = False
@@ -671,6 +737,21 @@ class LLMEngine:
             self.model = model
             self._chain_seed = self._seed_for(model)
 
+    def prefix_digests(self) -> Optional[Dict[str, Any]]:
+        """Hot prefix-head digests for cache-affinity routing (exported
+        through the serve membership channel). None: no hints, and the
+        router falls back to least-loaded/round-robin."""
+        if self.prefix_cache is None or not ray_config.llm_affinity_routing:
+            return None
+        return {
+            "model": self.model,
+            "block_tokens": self.block_tokens,
+            "seed": self._chain_seed,
+            "block_bytes": self._block_nbytes,
+            "keys": self.prefix_cache.hot_digests(
+                int(ray_config.llm_digest_blocks)),
+        }
+
 
 def _runs(rows: List[int]):
     """``(position in rows, first row, count)`` of each run of
@@ -724,10 +805,10 @@ class LLMDeployment:
                  warmup_max_prompt_len: Optional[int] = None,
                  models: Optional[Dict[str, Any]] = None,
                  default_model: Optional[str] = None,
-                 prefix_cache: bool = True,
-                 kv_block_tokens: int = 16,
-                 prefix_cache_bytes: int = 256 << 20,
-                 model_swap_deadline_s: float = 30.0,
+                 prefix_cache: Optional[bool] = None,
+                 kv_block_tokens: Optional[int] = None,
+                 prefix_cache_bytes: Optional[int] = None,
+                 model_swap_deadline_s: Optional[float] = None,
                  device=None):
         self.models: Dict[str, Any] = dict(models or {})
         if params_fn is not None and not self.models:
@@ -737,10 +818,14 @@ class LLMDeployment:
         self.default_model = default_model or next(iter(self.models))
         if self.default_model not in self.models:
             raise UnknownModelError(self.default_model, list(self.models))
+        if model_swap_deadline_s is None:
+            model_swap_deadline_s = ray_config.llm_model_swap_deadline_s
         self.model_swap_deadline_s = float(model_swap_deadline_s or 0)
         self._loaded: Dict[str, Any] = {}
         self._swap_lock = threading.Lock()
-        self.engine = LLMEngine(cfg, self._load_model(self.default_model),
+        self._c_swaps = perf_stats.counter("llm_model_swaps")
+        self.engine = LLMEngine(cfg, self._load_model(self.default_model,
+                                                      job="deploy"),
                                 max_batch_size=max_batch_size,
                                 max_seq_len=max_seq_len,
                                 decode_steps=decode_steps,
@@ -755,15 +840,20 @@ class LLMDeployment:
 
     # -- model loading / swapping ---------------------------------------
 
-    def _load_model(self, model: str):
-        """A model's weights: what its loader returned the first time."""
+    def _load_model(self, model: str, job: str):
+        """A model's weights: what its loader returned the first time. A
+        load is charged to the requesting tenant through the
+        ``llm_model_swap_bytes`` counter."""
         cached = self._loaded.get(model)
         if cached is None:
             src = self.models[model]
             cached = self._loaded[model] = src() if callable(src) else src
+            perf_stats.counter("llm_model_swap_bytes", {"job": job}).inc(
+                sum(t.numel() * t.element_size()
+                    for t in _leaves(cached)))
         return cached
 
-    def _ensure_model(self, model: str):
+    def _ensure_model(self, model: str, job: str):
         """Make ``model`` the engine's live weight set. The caller holds
         ``_swap_lock``, which also covers its enqueue: no other request
         can slip a different model in between."""
@@ -783,13 +873,22 @@ class LLMDeployment:
                     f"not running and {left} request(s) of model "
                     f"{self.engine.model!r} are unfinished")
             time.sleep(0.002)
-        self.engine.swap_params(self._load_model(model), model)
+        self.engine.swap_params(self._load_model(model, job), model)
+        self._c_swaps.inc()
         took = time.perf_counter() - t0
         if self.model_swap_deadline_s and took > self.model_swap_deadline_s:
             # The swap COMPLETED and the weights stay cached: the
             # caller's retry is warm.
             raise ModelSwapDeadlineError(model, took,
                                          self.model_swap_deadline_s)
+
+    def prefix_digests(self):
+        return self.engine.prefix_digests()
+
+    def stop(self):
+        """Stop the engine loop; the replica calls this when it shuts
+        down (``serve.delete``, ``serve.shutdown``)."""
+        self.engine.stop()
 
     def check_health(self):
         """Raise when the engine loop has died while it should run (an
@@ -816,7 +915,7 @@ class LLMDeployment:
         # and our admission. Tokens are read outside the lock: a queued
         # request pins its model, since any later swap drains it first.
         with self._swap_lock:
-            self._ensure_model(model)
+            self._ensure_model(model, job)
             it = self.engine.generate(request["prompt_ids"], params,
                                       stream=True, model=model,
                                       priority=priority, job=job)
